@@ -1,0 +1,161 @@
+"""HMR: a ResNet-50 or ViT backbone plus the iterative SMPL regressor.
+
+Counterpart of tuch_tpu/models/hmr.py. With the ResNet-50 backbone the
+state-dict keys are the reference's (SPIN/TUCH: conv1.weight,
+layer1.0.conv1.weight, bn1.running_mean, fc1.weight, decpose.weight, ...),
+so a reference .pt checkpoint loads directly; the graph follows
+tuch_tpu/models/torch_ref.py: stride on the 3x3 conv, BatchNorm eps 1e-5
+with running statistics, global mean pooling, and the 3-iteration IEF head
+with no activation. A ViT backbone lives under ``backbone.*``.
+
+Images come in NHWC, as in the JAX package; the ResNet permutes to NCHW.
+"""
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from tuch_tpu_torch.models import vit as vit_mod
+from tuch_tpu_torch.utils.rotations import rot6d_to_rotmat
+
+NPOSE = 24 * 6
+N_ITER = 3  # IEF refinement steps
+RESNET50_STAGES = (3, 4, 6, 3)
+
+
+class Bottleneck(nn.Module):
+    """ResNet v1.5 bottleneck (1x1 -> 3x3 with the stride -> 1x1, x4)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = nn.Sequential(
+            nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+            nn.BatchNorm2d(planes * 4, eps=1e-5)) if downsample else None
+
+    def forward(self, x):
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.relu(out + identity)
+
+
+def _resnet_layer(inplanes: int, planes: int, blocks: int, stride: int):
+    layers = [Bottleneck(inplanes, planes, stride, downsample=True)]
+    layers += [Bottleneck(planes * 4, planes) for _ in range(blocks - 1)]
+    return nn.Sequential(*layers)
+
+
+class HMR(nn.Module):
+    """Iterative SMPL regressor.
+
+    forward(images (B, H, W, 3)) -> (rotmat (B, 24, 3, 3), betas (B, 10),
+    cam (B, 3)). The IEF loop starts from the mean parameters.
+    """
+
+    def __init__(self, mean_pose6d, mean_shape, mean_cam,
+                 backbone: str = 'resnet50'):
+        super().__init__()
+        self.backbone_name = backbone
+        if backbone == 'resnet50':
+            # the reference's top-level module names, so its keys load as-is
+            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+            self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+            self.relu = nn.ReLU(inplace=True)
+            self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+            inplanes = 64
+            for i, (blocks, planes) in enumerate(
+                    zip(RESNET50_STAGES, (64, 128, 256, 512)), start=1):
+                setattr(self, f'layer{i}', _resnet_layer(
+                    inplanes, planes, blocks, 1 if i == 1 else 2))
+                inplanes = planes * 4
+            nfeat = inplanes
+        elif backbone in vit_mod.VIT_CONFIGS:
+            self.backbone = vit_mod.create_vit(backbone)
+            nfeat = self.backbone.width
+        else:
+            raise ValueError(
+                f'unknown backbone {backbone!r}; have resnet50, '
+                f'{sorted(vit_mod.VIT_CONFIGS)}')
+        self.fc1 = nn.Linear(nfeat + NPOSE + 13, 1024)
+        self.fc2 = nn.Linear(1024, 1024)
+        self.decpose = nn.Linear(1024, NPOSE)
+        self.decshape = nn.Linear(1024, 10)
+        self.deccam = nn.Linear(1024, 3)
+        for name, value in (('init_pose', mean_pose6d),
+                            ('init_shape', mean_shape),
+                            ('init_cam', mean_cam)):
+            self.register_buffer(name, torch.as_tensor(
+                np.asarray(value, np.float32).reshape(1, -1)),
+                persistent=False)
+
+    def features(self, images):
+        if self.backbone_name != 'resnet50':
+            return self.backbone(images)
+        x = images.permute(0, 3, 1, 2)
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        for i in range(1, 5):
+            x = getattr(self, f'layer{i}')(x)
+        return x.mean(dim=(2, 3))  # == AvgPool2d(7) for 224 inputs
+
+    def forward(self, images):
+        xf = self.features(images)
+        B = xf.shape[0]
+        pose = self.init_pose.expand(B, -1)
+        shape = self.init_shape.expand(B, -1)
+        cam = self.init_cam.expand(B, -1)
+        for _ in range(N_ITER):
+            # linear -> (dropout) -> linear -> (dropout), no activation,
+            # as in the reference regressor head
+            xc = self.fc2(self.fc1(torch.cat([xf, pose, shape, cam], dim=1)))
+            pose = self.decpose(xc) + pose
+            shape = self.decshape(xc) + shape
+            cam = self.deccam(xc) + cam
+        return rot6d_to_rotmat(pose).reshape(B, 24, 3, 3), shape, cam
+
+
+def create_hmr(mean_pose6d, mean_shape, mean_cam,
+               backbone: str = 'resnet50') -> HMR:
+    return HMR(mean_pose6d, mean_shape, mean_cam, backbone=backbone)
+
+
+@torch.no_grad()
+def init_weights(model: HMR, seed: int = 0) -> HMR:
+    """Random weights from a seeded torch.Generator, drawn on the CPU so a
+    seed gives the same model on every device.
+
+    The JAX package's initialisers: LeCun normal for convs and Linears,
+    Xavier uniform with gain 0.01 for the dec* Linears, zero biases, unit
+    BatchNorm and LayerNorm scales, BatchNorm statistics (0, 1).
+    """
+    gen = torch.Generator().manual_seed(seed)
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            w = mod.weight
+            fan_out, fan_in = w.shape[0], w[0].numel()
+            if name.startswith('dec'):
+                bound = 0.01 * math.sqrt(6.0 / (fan_in + fan_out))
+                new = (torch.rand(w.shape, generator=gen) * 2 - 1) * bound
+            else:
+                new = torch.randn(w.shape, generator=gen) / math.sqrt(fan_in)
+            w.copy_(new)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+    return model
