@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Drives the port's serving path end to end and fails loudly (a non-zero exit,
-no result line) if any check fails:
+Drives the port's ported paths end to end and fails loudly (a non-zero
+exit, no result line) if any check fails:
 
   1. build   the CUDA kernels from tuch_tpu_torch/csrc/, one nvcc each, in
-             parallel;
-  2. kernel  each kernel against its plain PyTorch version on the card at the
-             serving shapes, fp32 and bf16, and its time beside the plain
-             version's, a library call's and the card's bound;
+             parallel, with each kernel's ptxas line;
+  2. kernel  the attention kernel against its plain PyTorch version on the
+             card at the serving shapes, fp32 and bf16, and its time beside
+             the plain version's, a library call's and the card's bound;
   3. serve   the HTTP server with the ViT-S/16 backbone at full width on the
              synthetic 6890-vertex body: a single /predict and a concurrent
              burst that fills a micro-batch bucket; the attention kernel must
@@ -20,12 +20,30 @@ no result line) if any check fails:
              and image, for both backbones;
   6. times   B=1 forward latency and B=64 images/s for both backbones.
 
-Weights are random from a fixed seed. The last two lines of standard output
-are the kernel summary and {"ok": true, "device": {...}} as JSON; the line
-before them is the card's name and power limit from nvidia-smi.
+and the SMPLify-DC slice, on the same body with every contact asset:
+
+  7. kernel  winding numbers, the masked nearest vertex, row gather and row
+             scatter-add against their plain versions on the card, at the
+             slice's shapes, and each one's time at B=64 beside its plain
+             version's, its bound and a library call's;
+  8. fit     the demo (demo_smplify_dc --synthetic, 4 images, 100 iterations,
+             ResNet-50 SPIN init): finite outputs, a lower reprojection loss
+             than the init's, and each kernel launched exactly its count per
+             iteration;
+  9. parity  the card against the port's CPU path at B=2: in/out flags,
+             nearest vertices, the stage-2 loss and gradient, and the
+             vertices after a few iterations;
+ 10. times   ms per fit iteration at B=4 and B=64, the demo's wall time, and
+             a torch.profiler breakdown per B.
+
+Weights and bodies are random from fixed seeds. The last two lines of
+standard output are the kernel summary and {"ok": true, "device": {...}} as
+JSON; the line before them is the card's name and power limit from
+nvidia-smi.
 """
 
 import base64
+import copy
 import io
 import json
 import subprocess
@@ -50,6 +68,18 @@ ODD = dict(N=197, C=384, H=6)       # a ragged last tile of queries and keys
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SERVE_BUCKET = 4
 VIT_S16_DEPTH = 12
+
+# SMPLify-DC slice
+FIT_IMAGES, FIT_ITERS = 4, 100   # the demo as chip_smoke drives it
+TRAIN_B = 64                     # the training batch: kernel and fit times
+PLAIN_CHUNK = 16                 # the plain versions run B=64 in 4 batches
+PARITY_B, PARITY_ITERS = 2, 4    # card vs CPU; the CPU side stays ~1 minute
+WN_ATOL, WN_BAND = 2e-5, 1e-4    # winding: values; in/out at 0.99 outside
+D2_RTOL = 1e-6                   # masked min: d2, and argmin ties
+SCATTER_RTOL = 1e-5              # scatter vs index_add_ (atomic order)
+WINDING_OPS_PER_PAIR = 67        # counted in csrc/winding.cu
+MASKED_OPS_ALLOWED = 9           # + 1 mask test per pair, csrc/masked_min.cu
+DEV = 'cuda'                     # where the slice phases run
 
 
 def check(ok, msg):
@@ -312,6 +342,372 @@ def phase_times(backbone, predictor, card):
                   f'{ms / busy:6.1%} x{calls:<4d} {name}', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# SMPLify-DC slice
+# ---------------------------------------------------------------------------
+
+def bound(ops, nbytes):
+    """Least time (ms) for `ops` fp32 operations and `nbytes` bytes on the
+    card, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FLOPS[torch.float32], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def slice_counters():
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import gather as G
+    return {'winding': CK.winding_numbers_tris_cuda,
+            'masked_min': CK.masked_min_dist_cuda,
+            'gather': G.gather_rows_cuda,
+            'scatter_add': G.scatter_add_rows_cuda}
+
+
+def posed_verts(smpl, B, scale, seed):
+    from tuch_tpu_torch.models.smpl import smpl_forward
+    dev = smpl.v_template.device
+    rng = np.random.RandomState(seed)
+    pose = torch.as_tensor((rng.randn(B, 72) * scale).astype(np.float32),
+                           device=dev)
+    with torch.no_grad():
+        return smpl_forward(smpl, torch.zeros(B, 10, device=dev),
+                            pose[:, 3:], pose[:, :3]).vertices.contiguous()
+
+
+def fit_inputs(B, num_classes, seed, dev):
+    """A fitting problem at img_res 224 from numpy: init pose, betas and
+    camera, keypoints in pixels with confidences, contact labels."""
+    rng = np.random.RandomState(seed)
+    init_pose = (rng.randn(B, 72) * 0.2).astype(np.float32)
+    cam_t = np.tile(np.array([[0.0, 0.2, 40.0]], np.float32), (B, 1))
+    kp = np.concatenate([rng.uniform(40, 184, (B, 49, 2)),
+                         rng.uniform(0.5, 1.0, (B, 49, 1))], -1)
+    contact = (rng.rand(B, num_classes) > 0.7).astype(np.float32)
+    arrays = [init_pose, np.zeros((B, 10), np.float32), cam_t,
+              np.full((B, 2), 112.0, np.float32), kp.astype(np.float32),
+              contact]
+    flags = [np.zeros(B, bool), np.ones(B, bool), rng.rand(B) > 0.5]
+    return ([torch.as_tensor(a, device=dev) for a in arrays]
+            + [torch.as_tensor(f, device=dev) for f in flags])
+
+
+def _hold_winding(label, pts, tris):
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    got = CK.winding_numbers_tris_cuda(pts, tris)
+    want = PC.winding_numbers(pts, tris)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    band = (want - 0.99).abs() < WN_BAND
+    flips = (((got <= 0.99) != (want <= 0.99)) & ~band).sum().item()
+    print(f'[kernel] winding {label} {tuple(pts.shape)} x '
+          f'{tuple(tris.shape[1:2])} tris: max_abs_err {err:.3g} (tol '
+          f'{WN_ATOL}), in/out flips outside the band {flips}, values in '
+          f'the band |wn - 0.99| < {WN_BAND}: {band.sum().item()}, '
+          f'interior {(want > 0.99).sum().item()}', flush=True)
+    check(got.shape == want.shape and err <= WN_ATOL and flips == 0,
+          f'winding {label}: err {err}, flips {flips}')
+    return err
+
+
+def _hold_masked_min(label, verts, mask):
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    d2, arg = CK.masked_min_dist_cuda(verts, mask)
+    want_d2, want_arg = PC.masked_min_dist(verts, mask)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want_d2)
+    check(torch.equal(fin, torch.isfinite(d2)), f'{label}: inf rows differ')
+    err = (d2 - want_d2)[fin].abs().max().item()
+    rel_ok = ((d2 - want_d2).abs()[fin]
+              <= D2_RTOL * want_d2[fin]).all().item()
+    # another argmin only at a tie of the plain d2 within D2_RTOL
+    diff = verts - torch.gather(verts, 1, arg.long()[..., None].expand(
+        -1, -1, 3))
+    pick = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+        + diff[..., 2] * diff[..., 2]
+    differ = (arg != want_arg) & fin
+    ties_ok = ((pick - want_d2).abs()[differ]
+               <= D2_RTOL * want_d2[differ]).all().item()
+    rows = torch.arange(verts.shape[1], device=verts.device)
+    allowed = (mask[rows[None].expand_as(arg), arg.long()] > 0)[fin]
+    print(f'[kernel] masked_min {label} {tuple(verts.shape)}: d2 max_abs_err '
+          f'{err:.3g} (rtol {D2_RTOL}), argmin differs at '
+          f'{differ.sum().item()} (ties within rtol {D2_RTOL}), every pick '
+          f'allowed {bool(allowed.all())}', flush=True)
+    check(rel_ok and ties_ok and bool(allowed.all()),
+          f'masked_min {label}: rel {rel_ok}, ties {ties_ok}')
+    return err, arg
+
+
+def _chunked(fn, *tensors):
+    """The plain version over a B=64 input in batches of PLAIN_CHUNK (its
+    intermediates at B=64 would need tens of GB)."""
+    B = tensors[0].shape[0]
+    return [fn(*(t[i:i + PLAIN_CHUNK] for t in tensors))
+            for i in range(0, B, PLAIN_CHUNK)]
+
+
+def phase_slice_kernels(runtime, results):
+    """Kernels 2, 4, 5, 6 against their plain versions at the slice's
+    shapes, then each one's time at B=64."""
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import gather as G
+    from tuch_tpu_torch.ops.segments import fused_problem
+    smpl, contact = runtime.smpl, runtime.contact
+    faces, mask = contact.faces, contact.geomask
+    V = smpl.v_template.shape[0]
+    err = dict(winding=0.0, masked_min=0.0, gather=0.0, scatter_add=0.0)
+    for B in (1, 8):
+        bodies = {'rest': smpl.v_template[None].expand(B, -1, -1)
+                  .contiguous(), 'posed': posed_verts(smpl, B, 0.3, B)}
+        for name, verts in bodies.items():
+            err['winding'] = max(err['winding'], _hold_winding(
+                f'{name} B={B} self', verts, verts[:, faces]))
+            err['winding'] = max(err['winding'], _hold_winding(
+                f'{name} B={B} segments',
+                *fused_problem(contact.segment_tables, verts)))
+            e, arg = _hold_masked_min(f'{name} B={B}', verts, mask)
+            err['masked_min'] = max(err['masked_min'], e)
+        idx = arg.clone()
+        idx[0, :5] = -1
+        if B > 1:
+            idx[1, :3] = V
+        got = G.gather_rows_cuda(verts, idx)
+        want = G.gather_rows_ref(verts, idx)
+        contrib = torch.randn(B, V, 3, device=verts.device,
+                              generator=torch.Generator(verts.device)
+                              .manual_seed(B))
+        sc = G.scatter_add_rows_cuda(contrib, idx, V)
+        sc_want = G.scatter_add_rows_ref(contrib, idx, V)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, want)
+        e_sc = (sc - sc_want).abs().max().item()
+        sc_ok = ((sc - sc_want).abs()
+                 <= SCATTER_RTOL * sc_want.abs() + 1e-6).all().item()
+        print(f'[kernel] gather B={B} V={V} Q={V} (with -1 and V indices): '
+              f'bitwise equal {bitwise}; scatter_add: max_abs_err '
+              f'{e_sc:.3g} (rtol {SCATTER_RTOL} vs index_add_)', flush=True)
+        check(bitwise and sc_ok, f'gather {bitwise}, scatter {sc_ok}')
+        err['scatter_add'] = max(err['scatter_add'], e_sc)
+
+    # times at the training batch
+    B = TRAIN_B
+    verts = posed_verts(smpl, B, 0.3, 99)
+    tris = verts[:, faces]
+    allowed = int(mask.sum().item())
+    _, idx = CK.masked_min_dist_cuda(verts, mask)
+    idx_long = idx.long()[..., None].expand(-1, -1, 3)
+    contrib = torch.randn(B, V, 3, device=verts.device)
+    flat = (torch.arange(B, device=verts.device)[:, None] * V
+            + idx.long()).reshape(-1)
+    buf = torch.zeros(B * V, 3, device=verts.device)
+    src = contrib.reshape(-1, 3)
+    plans = {
+        'winding': (lambda: CK.winding_numbers_tris_cuda(verts, tris),
+                    lambda: _chunked(PC.winding_numbers, verts, tris), None,
+                    bound(WINDING_OPS_PER_PAIR * B * V * tris.shape[1],
+                          4 * B * (3 * V + 9 * tris.shape[1] + V))),
+        'masked_min': (lambda: CK.masked_min_dist_cuda(verts, mask),
+                       lambda: _chunked(
+                           lambda v: PC.masked_min_dist(v, mask), verts),
+                       None,
+                       bound(B * (V * V + MASKED_OPS_ALLOWED * allowed),
+                             V * V + 12 * B * V + 8 * B * V)),
+        'gather': (lambda: G.gather_rows_cuda(verts, idx),
+                   lambda: G.gather_rows_ref(verts, idx),
+                   lambda: torch.gather(verts, 1, idx_long),
+                   bound(0, 4 * B * (3 * V + V + 3 * V))),
+        'scatter_add': (lambda: G.scatter_add_rows_cuda(contrib, idx, V),
+                        lambda: G.scatter_add_rows_ref(contrib, idx, V),
+                        lambda: buf.index_add_(0, flat, src),
+                        bound(3 * B * V, 4 * B * (3 * V + V + 3 * V))),
+    }
+    for name, (kern, plain, lib, (bound_ms, bound_by)) in plans.items():
+        heavy = name in ('winding', 'masked_min')
+        ms = cuda_ms(kern, iters=5 if heavy else 50, warmup=1)
+        plain_ms = cuda_ms(plain, iters=2 if heavy else 20, warmup=1)
+        lib_ms = None if lib is None else cuda_ms(lib, iters=50, warmup=2)
+        lib_txt = 'no one-call library equivalent' if lib is None else \
+            f'library {lib_ms:.4f} ms'
+        print(f'[kernel] {name} B={B} V={V}: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms'
+              f'{f" ({B // PLAIN_CHUNK} x B={PLAIN_CHUNK})" if heavy else ""}, '
+              f'{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), '
+              f'{bound_ms / ms:.1%} of bound', flush=True)
+        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err[name])
+    del verts, tris, contrib, buf
+    torch.cuda.empty_cache()
+
+
+def phase_fit(runtime, launches):
+    """The demo on the card; returns its output."""
+    from tuch_tpu_torch import config as cfgmod
+    from tuch_tpu_torch.cli import demo_smplify_dc as demo
+    args = cfgmod.parse_config(cfgmod.SMPLifyDemoConfig, [
+        '--synthetic', '--num_images', str(FIT_IMAGES),
+        '--num_smplify_iters', str(FIT_ITERS), '--device', DEV])
+    counters = slice_counters()
+    t0 = time.perf_counter()
+    for c in counters.values():
+        c.launches = 0                   # the main path starts here
+    out = demo.run(args, runtime=runtime)
+    counts = {k: c.launches for k, c in counters.items()}  # ... and ends
+    wall = time.perf_counter() - t0
+    res = out.result
+    for name in ('vertices', 'joints', 'pose', 'betas', 'camera_translation',
+                 'reprojection_loss', 'trajectory'):
+        t = getattr(res, name)
+        check(bool(torch.isfinite(t).all()), f'fit: non-finite {name}')
+    V = runtime.smpl.v_template.shape[0]
+    check(res.vertices.shape == (FIT_IMAGES, V, 3),
+          f'fit: vertices {tuple(res.vertices.shape)}')
+    final = res.reprojection_loss.sum(-1).cpu().numpy()
+    init = out.init_reprojection_loss.sum(-1).cpu().numpy()
+    expected = {'winding': 2 * FIT_ITERS, 'masked_min': FIT_ITERS,
+                'gather': FIT_ITERS, 'scatter_add': FIT_ITERS}
+    print(f'[fit] demo_smplify_dc --synthetic, {FIT_IMAGES} images x '
+          f'{FIT_ITERS} iterations behind the ResNet-50 init: reprojection '
+          f'loss per image {np.round(init, 1).tolist()} -> '
+          f'{np.round(final, 1).tolist()}; launches {counts}, expected '
+          f'{expected}; HMR init + fit {out.seconds:.3f} s, whole run '
+          f'{wall:.3f} s (host clock)', flush=True)
+    check(bool((final < init).all()), 'fit: reprojection loss did not drop')
+    check(counts == expected, f'fit launches {counts} != {expected}')
+    launches.update(counts)
+    return out
+
+
+def phase_fit_parity(runtime):
+    """The card against the port's CPU path at full width on B=2."""
+    from tuch_tpu_torch.fitting import smplify_dc as PF
+    from tuch_tpu_torch.losses import smplify as PL
+    from tuch_tpu_torch.models.smpl import smpl_forward
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    t0 = time.perf_counter()
+    gpu = (runtime.smpl, runtime.prior, runtime.contact)
+    cpu = (copy.deepcopy(runtime.smpl).cpu(), runtime.prior.to('cpu'),
+           runtime.contact.to('cpu'))
+    P = runtime.contact.region_idx_a.shape[0]
+    ins = {'card': fit_inputs(PARITY_B, P, 11, DEV)}
+    ins['cpu'] = [t.cpu() for t in ins['card']]
+    pose = ins['card'][0] * 2.5          # fold the body: interior vertices
+    with torch.no_grad():
+        verts = smpl_forward(runtime.smpl, ins['card'][1], pose[:, 3:],
+                             pose[:, :3]).vertices
+    vc = verts.cpu()
+    # the half without gradient, on the same vertices
+    wn_c = CK.winding_numbers_faces(vc, vc, cpu[2].faces)
+    band = (wn_c - 0.99).abs() < WN_BAND
+    ext_g, arg_g = PL.contact_neighbors(verts, gpu[2])
+    ext_c, arg_c = PL.contact_neighbors(vc, cpu[2])
+    flips = ((ext_g.cpu() != ext_c) & ~band).sum().item()
+    d2_g, _ = CK.masked_min_dist(verts, gpu[2].geomask)
+    d2_c, _ = CK.masked_min_dist(vc, cpu[2].geomask)
+    fin = torch.isfinite(d2_c)
+    d2_ok = ((d2_g.cpu() - d2_c).abs()[fin] <= D2_RTOL * d2_c[fin]).all()
+    differ = (arg_g.cpu() != arg_c) & fin
+    print(f'[parity fit] B={PARITY_B} same vertices: interior (CPU) '
+          f'{(~ext_c).sum().item()}, in/out flips outside the band {flips} '
+          f'(in the band {band.sum().item()}); argmin differs at '
+          f'{differ.sum().item()}, d2 within rtol {D2_RTOL} '
+          f'{bool(d2_ok)}', flush=True)
+    check(flips == 0 and bool(d2_ok), f'parity neighbours: flips {flips}')
+    check(bool((((d2_g.cpu() - d2_c).abs() <= D2_RTOL * d2_c)
+                 | ~differ).all()), 'parity: argmin differs beyond a tie')
+
+    # the stage-2 loss and its gradient at the init pose, on the CPU's
+    # neighbours (the half with gradient, from the parameters)
+    def loss_and_grad(which):
+        return body_stepper(gpu if which == 'card' else cpu, ins[which],
+                            init_scale=2.5, neighbors=(ext_c, arg_c))()
+
+    lg, gg = loss_and_grad('card')
+    lc, gc = loss_and_grad('cpu')
+    rel = abs(lg - lc) / abs(lc)
+    # gradient: |card - CPU| <= 1e-4 |CPU| + 1e-6 max|CPU| per element, the
+    # rule the CPU tests hold the port to against jax.grad; gerr is the
+    # largest ratio of the two sides (<= 1 passes)
+    gerr = max(((gg[k] - gc[k]).abs()
+                / (1e-4 * gc[k].abs() + 1e-6 * gc[k].abs().max()))
+               .max().item() for k in gg)
+    print(f'[parity fit] stage-2 loss {lg:.6g} (card) vs {lc:.6g} (CPU), '
+          f'rel {rel:.3g} (rtol 1e-4); gradient worst ratio to its bar '
+          f'{gerr:.3g} (rtol 1e-4, atol 1e-6 of the largest)', flush=True)
+    check(rel <= 1e-4 and gerr <= 1.0, f'parity loss {rel}, grad {gerr}')
+
+    cfg = PF.SMPLifyConfig(num_iters=PARITY_ITERS, euclthres=0.02,
+                           contact_loss_weight=2000.0)
+    res = {w: PF.smplify_dc(*(gpu if w == 'card' else cpu), *ins[w],
+                            config=cfg) for w in ('card', 'cpu')}
+    verr = (res['card'].vertices.cpu() - res['cpu'].vertices).abs().max()
+    print(f'[parity fit] vertices after {PARITY_ITERS} iterations of each '
+          f'stage, card vs CPU: max abs diff {verr.item():.3g} (tol 1e-3); '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    check(verr.item() <= 1e-3, f'parity vertices {verr.item()}')
+
+
+def body_stepper(assets, ins, init_scale=1.0, neighbors=None):
+    """One body iteration of the fit at the reference's refresh every step:
+    the neighbour refresh (or the given neighbours), the stage-2 loss's
+    value and gradient, one Adam step. assets: (smpl, prior, contact).
+    Each call returns (loss, gradients on the CPU)."""
+    from tuch_tpu_torch.fitting import smplify_dc as PF
+    init_pose, betas, cam_t, cc, kp, gt, ign, hdc, _ = ins
+    stage = PF.contact_stage(*assets, betas, cam_t, cc, kp[..., :2],
+                             kp[..., 2], gt, ign, hdc, PF.SMPLifyConfig(
+                                 euclthres=0.02, contact_loss_weight=2000.0))
+    pose = init_pose * init_scale
+    state = {'body_pose': pose[:, 3:], 'global_orient': pose[:, :3]}
+    opt = PF.Adam(state, 1e-2)
+    dev = init_pose.device
+
+    def step():
+        nb = stage.neighbors(state) if neighbors is None else \
+            tuple(t.to(dev) for t in neighbors)
+        loss, grads = PF.value_and_grad(lambda q: stage.loss(q, nb), state)
+        state.update(opt.step(state, grads))
+        return float(loss), {k: g.cpu() for k, g in grads.items()}
+    return step
+
+
+def phase_fit_times(runtime, card, demo_out):
+    P = runtime.contact.region_idx_a.shape[0]
+    print(f'[times fit] demo (B={FIT_IMAGES}, {FIT_ITERS} iterations): HMR '
+          f'init + fit {demo_out.seconds:.3f} s (host clock); card: {card}',
+          flush=True)
+    assets = (runtime.smpl, runtime.prior, runtime.contact)
+    for B in (FIT_IMAGES, TRAIN_B):
+        step = body_stepper(assets, fit_inputs(B, P, 21, DEV))
+        for _ in range(2):
+            step()
+        n = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        per_iter = 1e3 * (time.perf_counter() - t0) / n
+        print(f'[times fit] B={B}: {per_iter:.3f} ms per body iteration '
+              f'(neighbour refresh, loss and gradient, Adam step; host '
+              f'clock, mean of {n})', flush=True)
+        wall, busy, rows = device_breakdown(
+            lambda: [step() for _ in range(3)], top=8)
+        if busy <= 0:
+            print(f'[profile fit B={B}] the profiler recorded no device time',
+                  flush=True)
+            continue
+        print(f'[profile fit B={B}] 3 body iterations: host wall {wall:.3f} '
+              f'ms, device busy {busy:.3f} ms, idle share '
+              f'{1 - busy / wall:.1%} (torch.profiler)', flush=True)
+        for name, ms, calls in rows:
+            print(f'[profile fit B={B}]   {ms:8.3f} ms {ms / busy:6.1%} '
+                  f'x{calls:<4d} {name}', flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -323,8 +719,8 @@ def main() -> int:
           f'{torch.version.cuda}', flush=True)
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
-    # are pinned off for phases 2-5 and restored to the defaults for the
-    # serving times of phase 6.
+    # are pinned off for phases 2-5 and 7-9 and restored to the defaults for
+    # the times of phases 6 and 10.
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -337,20 +733,42 @@ def main() -> int:
                   for bb in ('vit_s16', 'resnet50')}
     for bb, pred in predictors.items():
         phase_parity(bb, pred)
+
+    from tuch_tpu_torch import runtime as rt
+    t0 = time.perf_counter()
+    fit_rt = rt.build_runtime(device=DEV, synthetic=True,
+                              with_contact=True)
+    print(f'[fit] runtime with contact assets built in '
+          f'{time.perf_counter() - t0:.1f} s (geodesic mask '
+          f'{tuple(fit_rt.contact.geomask.shape)} uint8, '
+          f'{len(fit_rt.contact_classes)} region pairs, '
+          f'{len(fit_rt.contact.segment_tables.names)} segments)', flush=True)
+    phase_slice_kernels(fit_rt, kernels)
+    demo_out = phase_fit(fit_rt, launches)
+    phase_fit_parity(fit_rt)
+
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
     for bb, pred in predictors.items():
         phase_times(bb, pred, card)
+    phase_fit_times(fit_rt, card, demo_out)
 
     k = kernels[torch.float32]  # the serving path runs the fp32 kernel
-    summary = {'kernels': [{
-        'name': 'mha', 'route': 'cuda',
-        'source': 'tuch_tpu_torch/csrc/mha.cu',
-        'replaces': 'tuch_tpu/ops/attention_pallas.py:70',
-        'launches': launches['vit_s16'],
-        'max_abs_err': k['max_abs_err'], 'ms': k['ms'],
-        'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
-        'bound_by': k['bound_by'], 'library_ms': k['library_ms']}]}
+    rows = [dict(name='mha', source='tuch_tpu_torch/csrc/mha.cu',
+                 replaces='tuch_tpu/ops/attention_pallas.py:70',
+                 launches=launches['vit_s16'], **k)]
+    for name, src, rep in (
+            ('winding', 'winding.cu', 'contact_pallas.py:85'),
+            ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),
+            ('gather', 'gather.cu', 'gather_pallas.py:61'),
+            ('scatter_add', 'gather.cu', 'gather_pallas.py:84')):
+        rows.append(dict(name=name, source=f'tuch_tpu_torch/csrc/{src}',
+                         replaces=f'tuch_tpu/ops/{rep}',
+                         launches=launches[name], **kernels[name]))
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    summary = {'kernels': [{key: dict(row, route='cuda')[key]
+                            for key in keys} for row in rows]}
     print(card, flush=True)
     print(json.dumps(summary), flush=True)
     print(json.dumps({'ok': True, 'device': {

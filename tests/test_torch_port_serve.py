@@ -160,7 +160,7 @@ def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 30  # every module was imported
 
 
 def test_predictor_without_device_raises_when_cuda_is_absent(monkeypatch):

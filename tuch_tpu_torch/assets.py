@@ -1,19 +1,20 @@
 """Body-model assets: synthetic stand-ins and the real-asset loaders.
 
-Counterpart of tuch_tpu/assets.py for the serving path. Everything returns
-numpy arrays packed in this package's SMPLModel container; models/smpl.py
-turns them into module buffers.
+Counterpart of tuch_tpu/assets.py for the serving and fitting paths.
+Everything returns numpy arrays: the body in this package's SMPLModel
+container (models/smpl.py turns them into module buffers), the contact
+extras in ContactExtras, the GMM pose prior as a dict.
 
 The synthetic body is a closed UV sphere with the exact SMPL topology at
 full size (6890 vertices, 13776 faces), made with the same numpy random
 stream as the JAX package, so both packages build bitwise-equal arrays from
-the same seed.
+the same seed. Its contact extras draw no random numbers.
 """
 
 import pickle
 import sys
 import types
-from typing import NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -112,8 +113,8 @@ def synthetic_smpl(num_verts: int = constants.SMPL_NUM_VERTS, seed: int = 0
 
     Draws the same numpy random stream, in the same order, as
     tuch_tpu.assets.synthetic_smpl, so the arrays are bitwise equal. The
-    contact extras of the JAX version (geodesics, segments, regions, HD
-    surface) belong to later parts of the port and are not built here.
+    contact extras of the JAX version are built by synthetic_contact; its
+    HD surface belongs to the training step and is not ported yet.
     """
     rng = np.random.RandomState(seed)
     segs, rings = _sphere_params(num_verts)
@@ -179,6 +180,77 @@ def synthetic_smpl(num_verts: int = constants.SMPL_NUM_VERTS, seed: int = 0
         mean_shape=np.zeros(S, dtype=np.float32),
         mean_cam=np.array([0.9, 0.0, 0.0], dtype=np.float32))
     return model, means
+
+
+class ContactExtras(NamedTuple):
+    """What the self-contact terms need beyond the body model."""
+    geodists: Optional[np.ndarray]  # (V, V) float32 geodesic distances
+    segments: Dict[str, dict]       # name -> {'vidx', 'bands_verts'}
+    contact_classes: List[tuple]    # (region_a, region_b) name pairs
+    contact_csig: Dict[str, np.ndarray]  # region name -> vertex ids
+
+
+def synthetic_contact(num_verts: int = constants.SMPL_NUM_VERTS,
+                      with_geodists: bool = True) -> ContactExtras:
+    """The contact extras of the synthetic body, as the JAX package's
+    synthetic_smpl builds them (bitwise equal; no random numbers drawn).
+
+    geodists is the great-circle distance on the template sphere, a (V, V)
+    float32 matrix (~190 MB at full size): with_geodists=False skips it.
+    Segments are 9 narrow latitude bands closed by their boundary rings;
+    contact regions are 8 longitude sectors, paired into 12 classes.
+    """
+    segs, rings = _sphere_params(num_verts)
+    sphere, _ = uv_sphere(segs, rings)
+
+    geodists = None
+    if with_geodists:
+        unit = (sphere / np.linalg.norm(sphere, axis=-1, keepdims=True)
+                ).astype(np.float32)
+        cos = unit @ unit.T
+        np.clip(cos, -1.0, 1.0, out=cos)
+        geodists = np.arccos(cos, out=cos)
+
+    n_lat = rings - 2
+
+    def ring_ids(i):
+        return np.arange(1 + i * segs, 1 + (i + 1) * segs)
+
+    n_seg = min(9, max(1, n_lat // 4))
+    spacing = n_lat // n_seg
+    width = max(1, min(3, spacing - 2))
+    segments = {}
+    for si in range(n_seg):
+        lo = si * spacing + (spacing - width) // 2
+        hi = lo + width
+        lo, hi = max(lo, 1), min(hi, n_lat - 1)  # keep boundary rings valid
+        vidx = np.concatenate([ring_ids(i) for i in range(lo, hi)])
+        bands = [ring_ids(lo - 1).tolist(), ring_ids(hi).tolist()]
+        segments[f'patch{si}'] = {'vidx': vidx.astype(np.int64),
+                                  'bands_verts': bands}
+
+    n_regions = 8
+    phi = np.arctan2(sphere[:, 1], sphere[:, 0])
+    sector = ((phi + np.pi) / (2 * np.pi) * n_regions).astype(int) % n_regions
+    csig = {f'reg{r}': np.where(sector == r)[0].astype(np.int64)
+            for r in range(n_regions)}
+    classes = [(f'reg{a}', f'reg{b}')
+               for a in range(n_regions) for b in range(a + 1, n_regions)][:12]
+    return ContactExtras(geodists=geodists, segments=segments,
+                         contact_classes=classes, contact_csig=csig)
+
+
+def synthetic_gmm_prior(num_gaussians: int = 8, dim: int = 69, seed: int = 0):
+    """Synthetic GMM pose prior with the gmm_08.pkl schema, the same numpy
+    random stream as the JAX package's (bitwise equal)."""
+    rng = np.random.RandomState(seed)
+    means = rng.randn(num_gaussians, dim).astype(np.float32) * 0.1
+    covs = []
+    for _ in range(num_gaussians):
+        a = rng.randn(dim, dim).astype(np.float32) * 0.05
+        covs.append(a @ a.T + np.eye(dim, dtype=np.float32) * 0.5)
+    weights = rng.dirichlet(np.ones(num_gaussians)).astype(np.float32)
+    return {'means': means, 'covs': np.stack(covs), 'weights': weights}
 
 
 # ---------------------------------------------------------------------------
@@ -274,3 +346,17 @@ def load_mean_params(path: str) -> MeanParams:
             np.asarray(d['pose'], dtype=np.float32).reshape(-1),
             np.asarray(d['shape'], dtype=np.float32).reshape(-1),
             np.asarray(d['cam'], dtype=np.float32).reshape(-1))
+
+
+def load_gmm_prior(path: str) -> dict:
+    """gmm_08.pkl -> dict(means, covs, weights) as float32 numpy arrays
+    (a dict or an sklearn GMM object in the file)."""
+    with open(path, 'rb') as f:
+        gmm = pickle.load(f, encoding='latin1')
+    if isinstance(gmm, dict):
+        means, covs, weights = gmm['means'], gmm['covars'], gmm['weights']
+    else:
+        means, covs, weights = gmm.means_, gmm.covars_, gmm.weights_
+    return {'means': np.asarray(means, np.float32),
+            'covs': np.asarray(covs, np.float32),
+            'weights': np.asarray(weights, np.float32)}

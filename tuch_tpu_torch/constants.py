@@ -1,8 +1,9 @@
-"""Constants the serving path needs (counterpart of tuch_tpu/constants.py).
+"""Constants of the ported paths (counterpart of tuch_tpu/constants.py).
 
 Data-format constants of the SPIN/TUCH conventions: camera, input
-normalisation, SMPL sizes, the 21 surface-vertex joints and the map of the
-49-joint convention into the 54-joint SMPL output.
+normalisation, SMPL sizes, the 21 surface-vertex joints, the map of the
+49-joint convention into the 54-joint SMPL output, and the flip
+permutations of the data pipeline.
 """
 
 import numpy as np
@@ -60,6 +61,19 @@ JOINT_MAP = {
 
 JOINT_MAP_49 = np.array([JOINT_MAP[name] for name in JOINT_NAMES],
                         dtype=np.int32)
+JOINT_IDS = {name: i for i, name in enumerate(JOINT_NAMES)}
+
+# Permutations under a horizontal flip: SMPL joints (and their 72 pose
+# entries), the 24 ground-truth joints and the full 49.
+SMPL_JOINTS_FLIP_PERM = [0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13,
+                         15, 17, 16, 19, 18, 21, 20, 23, 22]
+SMPL_POSE_FLIP_PERM = [3 * i + k for i in SMPL_JOINTS_FLIP_PERM
+                       for k in range(3)]
+J24_FLIP_PERM = [5, 4, 3, 2, 1, 0, 11, 10, 9, 8, 7, 6, 12, 13, 14, 15, 16,
+                 17, 18, 19, 21, 20, 23, 22]
+J49_FLIP_PERM = [0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15,
+                 18, 17, 22, 23, 24, 19, 20, 21] \
+    + [25 + i for i in J24_FLIP_PERM]
 
 # SMPL surface vertex ids used as extra "joints" (the smplh vertex-id table),
 # appended after the 24 skeleton joints as joints 24..44 in this order.

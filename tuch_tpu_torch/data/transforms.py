@@ -1,8 +1,8 @@
-"""Host-side crop and normalisation for inference.
+"""Host-side crop, flips and keypoint/pose transforms, in numpy.
 
-Counterpart of the serving subset of tuch_tpu/data/transforms.py: the crop
-is one inverse-warp bilinear resample (crop + rotate + resize in a single
-affine map), in numpy.
+Counterpart of tuch_tpu/data/transforms.py: the crop is one inverse-warp
+bilinear resample (crop + rotate + resize in a single affine map); the
+keypoint and pose transforms are what TuchDataset.get needs.
 """
 
 from typing import Tuple
@@ -124,3 +124,110 @@ def normalize_image(img01: np.ndarray) -> np.ndarray:
     mean = np.asarray(constants.IMG_NORM_MEAN, np.float32)
     std = np.asarray(constants.IMG_NORM_STD, np.float32)
     return ((img01 - mean) / std).astype(np.float32)
+
+
+def flip_img(img: np.ndarray) -> np.ndarray:
+    """Horizontal flip, channels-last."""
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+def flip_kp(kp: np.ndarray) -> np.ndarray:
+    """Flip keypoints of the 24- or 49-joint convention."""
+    if len(kp) == 24:
+        perm = constants.J24_FLIP_PERM
+    elif len(kp) == 49:
+        perm = constants.J49_FLIP_PERM
+    else:
+        raise ValueError(f'unsupported keypoint count {len(kp)}')
+    kp = kp[perm].copy()
+    kp[:, 0] = -kp[:, 0]
+    return kp
+
+
+def flip_pose_np(pose: np.ndarray) -> np.ndarray:
+    """Flip a 72-dim SMPL pose."""
+    pose = pose[constants.SMPL_POSE_FLIP_PERM].copy()
+    pose[1::3] = -pose[1::3]
+    pose[2::3] = -pose[2::3]
+    return pose
+
+
+def aa_to_rotmat_np(aa: np.ndarray) -> np.ndarray:
+    """Axis-angle (3,) -> rotation matrix (Rodrigues)."""
+    angle = np.linalg.norm(aa)
+    if angle < 1e-8:
+        return np.eye(3)
+    axis = aa / angle
+    K = np.array([[0, -axis[2], axis[1]],
+                  [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def rotmat_to_aa_np(M: np.ndarray) -> np.ndarray:
+    """Rotation matrix -> axis-angle, with the near-pi branch (where the
+    antisymmetric part vanishes and the axis comes from (M + I) / 2)."""
+    cos_a = np.clip((np.trace(M) - 1) / 2, -1, 1)
+    a = np.arccos(cos_a)
+    if a < 1e-8:
+        return np.zeros(3, np.float32)
+    if np.pi - a < 1e-6:
+        A = (M + np.eye(3)) / 2
+        k = int(np.argmax(np.diag(A)))
+        axis = A[k] / max(np.sqrt(max(A[k, k], 1e-12)), 1e-12)
+        axis /= max(np.linalg.norm(axis), 1e-12)
+        return (axis * a).astype(np.float32)
+    axis = np.array([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0],
+                     M[1, 0] - M[0, 1]]) / (2 * np.sin(a))
+    return (axis * a).astype(np.float32)
+
+
+def rot_aa_np(aa: np.ndarray, rot: float) -> np.ndarray:
+    """Rotate a global orientation by `rot` image degrees."""
+    if rot == 0:
+        return aa.astype(np.float32)
+    rad = np.deg2rad(-rot)
+    R = np.array([[np.cos(rad), -np.sin(rad), 0],
+                  [np.sin(rad), np.cos(rad), 0], [0, 0, 1]])
+    return rotmat_to_aa_np(R @ aa_to_rotmat_np(aa))
+
+
+def j2d_processing(kp: np.ndarray, center, scale, res: int, rot: float,
+                   flip: bool) -> np.ndarray:
+    """2D keypoints into normalised crop coordinates in [-1, 1]."""
+    t = get_transform(center, scale, (res, res), rot)
+    kp = kp.copy()
+    kp[:, :2] = transform_points(kp[:, :2], t)
+    kp[:, :-1] = 2.0 * kp[:, :-1] / res - 1.0
+    if flip:
+        kp = flip_kp(kp)
+    return kp.astype(np.float32)
+
+
+def j3d_processing(S: np.ndarray, rot: float, flip: bool,
+                   apply_rotation: bool = False) -> np.ndarray:
+    """Flip (and, with apply_rotation, rotate) 3D keypoints.
+
+    apply_rotation=False is the reference's behaviour: its rotation branch
+    is unreachable, so 3D keypoints are never rotated with the image.
+    """
+    S = S.copy()
+    if apply_rotation and rot != 0:
+        rad = -rot * np.pi / 180
+        sn, cs = np.sin(rad), np.cos(rad)
+        R = np.eye(3)
+        R[0, :2] = [cs, -sn]
+        R[1, :2] = [sn, cs]
+        S[:, :3] = S[:, :3] @ R.T
+    if flip:
+        S = flip_kp(S)
+    return S.astype(np.float32)
+
+
+def pose_processing(pose: np.ndarray, rot: float, flip: bool) -> np.ndarray:
+    """Rotate the global orientation and optionally flip a SMPL pose."""
+    pose = pose.copy()
+    pose[:3] = rot_aa_np(pose[:3], rot)
+    if flip:
+        pose = flip_pose_np(pose)
+    return pose.astype(np.float32)

@@ -9,10 +9,16 @@ column order is kept, so the attention layout is unchanged.
 ``load_checkpoint`` reads a reference ``.pt`` (a raw state dict or the
 ``{'model': state_dict}`` wrapper) or the JAX package's flat ``.npz`` pytree
 (keys 'params/backbone/...'), the latter with numpy only.
+
+``contact_assets_from_numpy`` and ``prior_from_numpy`` carry the fitting
+state across: they take the fields of the JAX package's ContactAssets,
+SegmentTables and GMMPrior as numpy arrays (or the same fields made by
+this package's numpy functions, as the runtime passes) and build this
+package's.
 """
 
 import re
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -74,6 +80,49 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
                            'HMR tree')
         sd['.'.join(mod + [name])] = torch.tensor(np.ascontiguousarray(v))
     return sd
+
+
+def contact_assets_from_numpy(fields: Mapping, segment_tables=None,
+                              device='cpu'):
+    """ContactAssets on `device` from numpy arrays.
+
+    fields: geomask (V, V) bool or uint8, allowed[query, searched]; faces
+    (F, 3); region_idx_a/b and region_mask_a/b (P, R). segment_tables: a
+    SegmentTables (or a mapping of its fields) with numpy arrays, or None.
+    The mask is stored as uint8 whose transpose is contiguous: the layout
+    the masked-min kernel reads.
+    """
+    from tuch_tpu_torch.losses.smplify import ContactAssets
+    from tuch_tpu_torch.ops import segments as seg_mod
+
+    def idx(x):
+        return torch.tensor(np.asarray(x), dtype=torch.long, device=device)
+
+    def mask(x):
+        return torch.tensor(np.asarray(x, bool), device=device)
+
+    geomask_t = np.ascontiguousarray(np.asarray(fields['geomask'],
+                                                np.uint8).T)
+    tables = None
+    if segment_tables is not None:
+        if isinstance(segment_tables, Mapping):
+            segment_tables = seg_mod.SegmentTables(**segment_tables)
+        tables = seg_mod.to_device(segment_tables, device)
+    return ContactAssets(
+        geomask=torch.as_tensor(geomask_t, device=device).t(),
+        faces=idx(fields['faces']),
+        region_idx_a=idx(fields['region_idx_a']),
+        region_idx_b=idx(fields['region_idx_b']),
+        region_mask_a=mask(fields['region_mask_a']),
+        region_mask_b=mask(fields['region_mask_b']),
+        segment_tables=tables)
+
+
+def prior_from_numpy(means, precisions, nll_weights, device='cpu'):
+    """GMMPrior on `device` from its three arrays (float32)."""
+    from tuch_tpu_torch.losses.prior import GMMPrior
+    return GMMPrior(*(torch.tensor(np.asarray(x, np.float32), device=device)
+                      for x in (means, precisions, nll_weights)))
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):

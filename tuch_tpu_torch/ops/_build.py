@@ -98,6 +98,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def entry(name: str, symbol: str, argtypes):
+    """(library, C function) of csrc/<name>.cu; the function returns a
+    cudaError_t and takes `argtypes` (set once, on first use)."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def check(lib: ctypes.CDLL, err: int, what: str):
     """Raise on a non-zero cudaError_t returned by a kernel's C entry."""
     if err:
