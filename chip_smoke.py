@@ -36,6 +36,19 @@ and the SMPLify-DC slice, on the same body with every contact asset:
  10. times   ms per fit iteration at B=4 and B=64, the demo's wall time, and
              a torch.profiler breakdown per B.
 
+and the experimental winding routes, unwired as in the JAX package, on the
+same body with the JAX defaults (clusters of 256 faces, tiles of 512
+points, 16 near clusters):
+
+ 11. routes  the affine route (kernel 3) and the hierarchical route (dense
+             PyTorch plus kernel 7) through their entry points at B=64, rest
+             and posed, with their in/out flips at 0.99 against kernel 2 and
+             exact launch counts; kernels 3 and 7 against their plain
+             versions at B 1 and 8, rest and posed; times at B=4 and 64 of
+             kernels 3, 7 and 2 and of the whole hierarchical route, each
+             beside its plain version's and its bound, and a torch.profiler
+             breakdown of the route.
+
 Weights and bodies are random from fixed seeds. The last two lines of
 standard output are the kernel summary and {"ok": true, "device": {...}} as
 JSON; the line before them is the card's name and power limit from
@@ -77,9 +90,17 @@ PARITY_B, PARITY_ITERS = 2, 4    # card vs CPU; the CPU side stays ~1 minute
 WN_ATOL, WN_BAND = 2e-5, 1e-4    # winding: values; in/out at 0.99 outside
 D2_RTOL = 1e-6                   # masked min: d2, and argmin ties
 SCATTER_RTOL = 1e-5              # scatter vs index_add_ (atomic order)
-WINDING_OPS_PER_PAIR = 67        # counted in csrc/winding.cu
+WINDING_OPS_PER_PAIR = 67        # counted in csrc/solid_angle.cuh
 MASKED_OPS_ALLOWED = 9           # + 1 mask test per pair, csrc/masked_min.cu
 DEV = 'cuda'                     # where the slice phases run
+
+# winding routes (phase 11), bars stated before the first run on the card
+ROUTE_NEAR = 16                  # num_near; cluster_size 256, tile_q 512
+AFFINE_ATOL = 2e-5               # kernel 3 vs plain: same la2, lb2, lc2
+NEAR_ATOL = 2e-5                 # kernel 7 vs plain, in winding units
+REST_FLIPS = 0                   # flips of either route vs kernel 2, rest
+AFFINE_OPS_PER_PAIR = 69         # counted in csrc/winding_affine.cu
+FAR_OPS_PER_PAIR = 17            # (point, cluster) dipole, hier_problem
 
 
 def check(ok, msg):
@@ -543,6 +564,173 @@ def phase_slice_kernels(runtime, results):
     torch.cuda.empty_cache()
 
 
+def route_counters():
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import winding_hier as PH
+    return {'winding_affine': CK.winding_numbers_affine_cuda,
+            'winding_near': PH.near_field_cuda}
+
+
+def _flips(got, want):
+    return ((got <= 0.99) != (want <= 0.99)).sum().item()
+
+
+def phase_routes(runtime, results, launches):
+    """Phase 11: the affine and hierarchical winding routes."""
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import winding_hier as PH
+    smpl, faces = runtime.smpl, runtime.contact.faces
+    V = smpl.v_template.shape[0]
+    clusters = PH.build_winding_clusters(smpl.v_template.cpu().numpy(),
+                                         faces.cpu().numpy(), device=DEV)
+    K, Qp = clusters.num_clusters, clusters.vert_perm.shape[0]
+    M = min(ROUTE_NEAR, K)
+    check((K, Qp) == (54, 7168), f'clusters K={K} Qp={Qp}')
+
+    # the routes' entry points at B=64, against kernel 2
+    B = TRAIN_B
+    bodies = {'rest': smpl.v_template[None].expand(B, -1, -1).contiguous(),
+              'posed': posed_verts(smpl, B, 0.3, 99)}
+    counters = route_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0                   # the routes' run starts here
+    outs = {name: (CK.winding_numbers_affine(v, v, faces),
+                   PH.winding_numbers_hier(v, clusters, ROUTE_NEAR))
+            for name, v in bodies.items()}
+    counts = {k: c.launches for k, c in counters.items()}  # ... and ends
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = {k: len(bodies) for k in counters}
+    check(counts == expected, f'route launches {counts} != {expected}')
+    launches.update(counts)
+    for name, v in bodies.items():
+        exact = CK.winding_numbers_tris_cuda(v, v[:, faces])
+        aff, hier = outs[name]
+        fa, fh = _flips(aff, exact), _flips(hier, exact)
+        print(f'[routes] {name} B={B}: interior (kernel 2) '
+              f'{(exact > 0.99).sum().item()} of {B * V}; in/out flips at '
+              f'0.99 vs kernel 2: affine {fa}, hierarchical {fh} (M={M} of '
+              f'K={K}); max |wn - kernel 2|: affine '
+              f'{(aff - exact).abs().max().item():.4g}, hierarchical '
+              f'{(hier - exact).abs().max().item():.4g}', flush=True)
+        if name == 'rest':
+            check(fa <= REST_FLIPS and fh <= REST_FLIPS,
+                  f'rest flips: affine {fa}, hierarchical {fh}')
+    print(f'[routes] peak device memory over both routes at B={B}: '
+          f'{peak:.3f} GiB', flush=True)
+    del outs
+
+    # kernels 3 and 7 against their plain versions
+    err = {'winding_affine': 0.0, 'winding_near': 0.0}
+    for B in (1, 8):
+        held = {'rest': smpl.v_template[None].expand(B, -1, -1)
+                .contiguous(), 'posed': posed_verts(smpl, B, 0.3, B)}
+        for name, v in held.items():
+            p4 = CK.affine_points(v)
+            tc = CK.affine_triangle_constants(v[:, faces])
+            got = CK.winding_numbers_affine_cuda(p4, tc)
+            want = CK.winding_numbers_affine_ref(p4, tc)
+            prob = PH.hier_problem(v, clusters, ROUTE_NEAR)
+            near = PH.near_field_cuda(prob.sel, prob.pts, prob.tris)
+            near_want = PH.near_field_ref(prob.sel, prob.pts, prob.tris)
+            torch.cuda.synchronize()
+            ea = (got - want).abs().max().item()
+            en = (near - near_want).abs().max().item() * PC.INV_4PI
+            flips = _flips(got, want)
+            print(f'[routes] kernels {name} B={B}: affine max_abs_err '
+                  f'{ea:.3g} (tol {AFFINE_ATOL}), in/out flips {flips}; '
+                  f'near field max_abs_err {en:.3g} in winding units (tol '
+                  f'{NEAR_ATOL})', flush=True)
+            check(got.shape == want.shape and ea <= AFFINE_ATOL
+                  and flips == 0, f'affine {name} B={B}: {ea}, {flips}')
+            check(near.shape == near_want.shape and en <= NEAR_ATOL,
+                  f'near field {name} B={B}: {en}')
+            err['winding_affine'] = max(err['winding_affine'], ea)
+            err['winding_near'] = max(err['winding_near'], en)
+
+    # times at the demo's batch and the training batch
+    for B in (FIT_IMAGES, TRAIN_B):
+        verts = bodies['posed'] if B == TRAIN_B else \
+            posed_verts(smpl, B, 0.3, 99)
+        _time_routes(B, verts, faces, clusters, results, err)
+    del bodies
+    torch.cuda.empty_cache()
+
+
+def _time_routes(B, verts, faces, clusters, results, err):
+    """Kernels 3, 7 and 2 and the whole hierarchical route on one posed
+    batch: each one's time beside its plain version's and its bound, and a
+    profile of the route; the training batch's go into results."""
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import winding_hier as PH
+    V, F = verts.shape[1], faces.shape[0]
+    K, C = clusters.num_clusters, clusters.cluster_size
+    Qp = clusters.vert_perm.shape[0]
+    tris = verts[:, faces]
+    p4, tc = CK.affine_points(verts), CK.affine_triangle_constants(tris)
+    prob = PH.hier_problem(verts, clusters, ROUTE_NEAR)
+    T, M = prob.sel.shape[1:]
+    near_pairs = B * Qp * M * C
+
+    def hier_plain(v):
+        pr = PH.hier_problem(v, clusters, ROUTE_NEAR)
+        return PH.combine(PH.near_field_ref(pr.sel, pr.pts, pr.tris),
+                          pr.far, clusters)
+
+    def route():
+        return PH.winding_numbers_hier(verts, clusters, ROUTE_NEAR)
+
+    plans = {
+        'winding_affine': (
+            lambda: CK.winding_numbers_affine_cuda(p4, tc),
+            lambda: _chunked(CK.winding_numbers_affine_ref, p4, tc),
+            bound(AFFINE_OPS_PER_PAIR * B * V * F,
+                  4 * B * (4 * V + 28 * F + V))),
+        'winding_near': (
+            lambda: PH.near_field_cuda(prob.sel, prob.pts, prob.tris),
+            lambda: _chunked(PH.near_field_ref, prob.sel, prob.pts,
+                             prob.tris),
+            bound(WINDING_OPS_PER_PAIR * near_pairs,
+                  4 * B * (3 * Qp + 9 * K * C + Qp + T * M))),
+        'hier route': (
+            route, lambda: _chunked(hier_plain, verts),
+            bound(WINDING_OPS_PER_PAIR * near_pairs
+                  + FAR_OPS_PER_PAIR * B * Qp * K, 4 * B * (3 * V + V))),
+        'winding (kernel 2)': (
+            lambda: CK.winding_numbers_tris_cuda(verts, tris),
+            lambda: _chunked(PC.winding_numbers, verts, tris),
+            bound(WINDING_OPS_PER_PAIR * B * V * F,
+                  4 * B * (3 * V + 9 * F + V))),
+    }
+    chunks = f'{-(-B // PLAIN_CHUNK)} x B={min(B, PLAIN_CHUNK)}'
+    for name, (kern, plain, (bound_ms, bound_by)) in plans.items():
+        ms = cuda_ms(kern, iters=5, warmup=1)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        print(f'[routes] {name} B={B} V={V}: {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms ({chunks}), no one-call library '
+              f'equivalent, bound {bound_ms:.4f} ms ({bound_by}), '
+              f'{bound_ms / ms:.1%} of bound', flush=True)
+        if name in err and B == TRAIN_B:
+            results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 max_abs_err=err[name])
+    wall, busy, rows = device_breakdown(route, top=5)
+    if busy <= 0:
+        print(f'[profile route B={B}] the profiler recorded no device time',
+              flush=True)
+        return
+    print(f'[profile route B={B}] one hierarchical route: host wall '
+          f'{wall:.3f} ms, device busy {busy:.3f} ms, idle share '
+          f'{1 - busy / wall:.1%} (torch.profiler)', flush=True)
+    for name, ms, calls in rows:
+        print(f'[profile route B={B}]   {ms:8.3f} ms {ms / busy:6.1%} '
+              f'x{calls:<4d} {name}', flush=True)
+
+
 def phase_fit(runtime, launches):
     """The demo on the card; returns its output."""
     from tuch_tpu_torch import config as cfgmod
@@ -720,7 +908,7 @@ def main() -> int:
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
     # are pinned off for phases 2-5 and 7-9 and restored to the defaults for
-    # the times of phases 6 and 10.
+    # the times of phases 6 and 10 (phase 11 runs neither).
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -752,6 +940,7 @@ def main() -> int:
     for bb, pred in predictors.items():
         phase_times(bb, pred, card)
     phase_fit_times(fit_rt, card, demo_out)
+    phase_routes(fit_rt, kernels, launches)
 
     k = kernels[torch.float32]  # the serving path runs the fp32 kernel
     rows = [dict(name='mha', source='tuch_tpu_torch/csrc/mha.cu',
@@ -761,7 +950,9 @@ def main() -> int:
             ('winding', 'winding.cu', 'contact_pallas.py:85'),
             ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),
             ('gather', 'gather.cu', 'gather_pallas.py:61'),
-            ('scatter_add', 'gather.cu', 'gather_pallas.py:84')):
+            ('scatter_add', 'gather.cu', 'gather_pallas.py:84'),
+            ('winding_affine', 'winding_affine.cu', 'contact_pallas.py:205'),
+            ('winding_near', 'winding_near.cu', 'winding_hier.py:121')):
         rows.append(dict(name=name, source=f'tuch_tpu_torch/csrc/{src}',
                          replaces=f'tuch_tpu/ops/{rep}',
                          launches=launches[name], **kernels[name]))

@@ -1,7 +1,9 @@
 """The kernels' wrappers, builds and launch counts (torch only).
 
 Attention (kernel 1), winding numbers (2), the masked nearest vertex (4),
-row gather (5) and row scatter-add (6). This file imports no JAX, so it
+row gather (5) and row scatter-add (6), and the experimental winding
+routes: affine-form winding (3) and the hierarchical near field (7). This
+file imports no JAX, so it
 also runs on a machine with a card and no JAX:
 ``python -m pytest --noconftest tests/test_torch_port_kernels.py``.
 The tests marked `cuda` launch the CUDA kernels and skip without a card;
@@ -22,6 +24,7 @@ from tuch_tpu_torch.ops import attention as A
 from tuch_tpu_torch.ops import contact as PC
 from tuch_tpu_torch.ops import contact_kernels as CK
 from tuch_tpu_torch.ops import gather as G
+from tuch_tpu_torch.ops import winding_hier as PH
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -66,12 +69,14 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=REPO)
     code = ('import shutil; import tuch_tpu_torch.ops.attention, '
             'tuch_tpu_torch.ops.contact_kernels, tuch_tpu_torch.ops.gather, '
-            'tuch_tpu_torch.ops.segments, tuch_tpu_torch.ops._build as b; '
+            'tuch_tpu_torch.ops.segments, tuch_tpu_torch.ops.winding_hier, '
+            'tuch_tpu_torch.ops._build as b; '
             'assert shutil.which("nvcc") is None; print(b.sources())')
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for name in ('mha', 'winding', 'masked_min', 'gather'):
+    for name in ('mha', 'winding', 'masked_min', 'gather', 'winding_affine',
+                 'winding_near'):
         assert repr(name) in out.stdout
 
 
@@ -135,6 +140,19 @@ def test_contact_dispatch_on_cpu_uses_plain_versions_without_launching():
         v.grad, G.scatter_add_rows_ref(torch.ones_like(out), idx, 150),
         rtol=0, atol=0)
     assert _launches() == before
+
+
+def test_winding_route_wrappers_refuse_cpu_tensors():
+    sel = torch.zeros((2, 1, 1), dtype=torch.int32)
+    calls = [
+        lambda: CK.winding_numbers_affine_cuda(torch.zeros(2, 4, 10),
+                                               torch.zeros(2, 28, 7)),
+        lambda: PH.near_field_cuda(sel, torch.zeros(2, 3, 8),
+                                   torch.zeros(2, 1, 9, 4)),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match='CUDA'):
+            call()
 
 
 def test_split_covers_the_axis_in_whole_tiles():
@@ -274,3 +292,88 @@ def test_gather_and_scatter_kernels_match_plain_versions_on_card(
     v = vals.clone().requires_grad_(True)
     G.gather_rows(v, idx).backward(contrib)
     assert ((v.grad - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 7 (the experimental winding routes) on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,Q,F', [(1, 130, 300), (3, 7, 1000),
+                                   (3, 600, 129)])
+def test_affine_kernel_matches_plain_version_on_card(cuda_device, B, Q, F):
+    """Ragged query and triangle tiles, one and several splits, queries on
+    triangle corners (the first Q vertices): atol 2e-5 (float32 summation
+    order; la2, lb2, lc2 and so the corner mask are the same bits on both),
+    equal in/out decisions."""
+    verts, faces = _body(B=B, V=max(Q, 8), F=F, device=cuda_device)
+    pts = verts[:, :Q].contiguous()
+    before = CK.winding_numbers_affine_cuda.launches
+    got = CK.winding_numbers_affine(pts, verts, faces)
+    torch.cuda.synchronize()
+    assert CK.winding_numbers_affine_cuda.launches == before + 1
+    want = CK.winding_numbers_affine_ref(
+        CK.affine_points(pts), CK.affine_triangle_constants(verts[:, faces]))
+    assert got.shape == (B, Q)
+    assert (got - want).abs().max().item() <= 2e-5
+    assert torch.equal(got <= 0.99, want <= 0.99)
+
+
+def _near_problem(B, TQ, C, device, T=3, K=5, M=7):
+    """Small triangles (corners 0.1 around unit-normal centres), sel with
+    repeated and out-of-order clusters (M > K), points on the corners of
+    cluster 0's first triangles, and cluster K-1 made of
+    degenerate faces only (one vertex three times, as the padding of
+    build_winding_clusters), which tile 1 of item 0 selects alone and whose
+    first point sits on one of those vertices."""
+    rng = np.random.RandomState(6)
+    pts = rng.randn(B, 3, T * TQ).astype(np.float32)
+    tris = (np.tile(rng.randn(B, K, 3, C), (1, 1, 3, 1))
+            + 0.1 * rng.randn(B, K, 9, C)).astype(np.float32)
+    pts[:, :, :10] = tris[:, 0, 0:3, :10]
+    tris[:, K - 1] = np.tile(tris[:, K - 1, 0:3], (1, 3, 1))
+    pts[:, :, TQ] = tris[:, K - 1, 0:3, 0]
+    sel = rng.randint(0, K, (B, T, M)).astype(np.int32)
+    sel[0, 0] = [4, 4, 0, 2, 4, 1, 0]
+    sel[0, 1] = K - 1
+    return [torch.from_numpy(x).to(device) for x in (sel, pts, tris)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,TQ,C', [(1, 512, 256), (3, 200, 300)])
+def test_near_kernel_matches_plain_version_on_card(cuda_device, B, TQ, C):
+    """Kernel 7 against near_field_ref: a ragged point block (TQ = 200), a
+    ragged triangle stage (C = 300), the m axis split over the grid; atol
+    2e-5 in winding-number units (the sum over 4 pi), as kernel 2; the
+    degenerate faces add exactly 0."""
+    sel, pts, tris = _near_problem(B, TQ, C, cuda_device)
+    before = PH.near_field_cuda.launches
+    got = PH.near_field(sel, pts, tris)
+    torch.cuda.synchronize()
+    assert PH.near_field_cuda.launches == before + 1
+    want = PH.near_field_ref(sel, pts, tris)
+    assert got.shape == (B, pts.shape[2])
+    assert (got - want).abs().max().item() * PC.INV_4PI <= 2e-5
+    assert (got[0, TQ:2 * TQ] == 0).all()
+
+
+@pytest.mark.cuda
+def test_hier_route_on_card_matches_cpu(cuda_device):
+    """The whole hierarchical route, card against CPU, on the 994-vertex
+    synthetic body with M = 4 < K = 31: atol 1e-4."""
+    from tuch_tpu_torch import assets
+    model, _ = assets.synthetic_smpl(num_verts=1000)
+    rng = np.random.RandomState(0)
+    v0 = model.v_template
+    verts = torch.from_numpy((v0[None] * np.array([1.0, 0.6, 1.0])
+                              + 0.02 * rng.randn(2, *v0.shape))
+                             .astype(np.float32))
+    cl = {dev: PH.build_winding_clusters(v0, model.faces, cluster_size=64,
+                                         tile_q=128, device=dev)
+          for dev in ('cpu', cuda_device)}
+    before = PH.near_field_cuda.launches
+    got = PH.winding_numbers_hier(verts.to(cuda_device), cl[cuda_device], 4)
+    torch.cuda.synchronize()
+    assert PH.near_field_cuda.launches == before + 1
+    want = PH.winding_numbers_hier(verts, cl['cpu'], 4)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

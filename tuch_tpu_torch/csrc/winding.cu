@@ -30,37 +30,19 @@
 //     triangle axis is split over the second grid dimension; each split
 //     writes its partial sum and a second kernel adds the partials in split
 //     order. No atomics: the result is deterministic;
-//   * every product and sum is rounded on its own (__fmul_rn, __fadd_rn):
-//     no FMA contraction, so the arithmetic is the plain version's. A
-//     query on a triangle corner then gives a = 0 and a denominator that
-//     starts from +0 and adds only zeros, and atan2(+-0, +0) = +-0: the
-//     faces around a vertex add exactly 0 to its own winding number.
+//   * every product and sum is rounded on its own (solid_angle.cuh): no FMA
+//     contraction, so the arithmetic is the plain version's, and the faces
+//     around a vertex add exactly 0 to its own winding number.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "solid_angle.cuh"
 
 namespace {
 
+using tuch::add;
+using tuch::mul;
+
 constexpr int TQ = 128;  // queries per block, one thread each
 constexpr int TF = 128;  // triangles per shared-memory tile
-
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return add(add(mul(x, x), mul(y, y)), mul(z, z));
-}
-__device__ __forceinline__ float dot(float ax, float ay, float az, float bx,
-                                     float by, float bz) {
-  return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
-}
 
 // Grid (ceil(Q / TQ), splits, B). Split s covers triangles
 // [s * chunk, min(F, (s + 1) * chunk)) and writes dst[(b * splits + s) * Q
@@ -95,52 +77,14 @@ __global__ void __launch_bounds__(TQ)
     __syncthreads();
     if (!live) continue;
     for (int j = 0; j < n; ++j) {
-      const float ax = sub(tile[0][j], qx), ay = sub(tile[1][j], qy),
-                  az = sub(tile[2][j], qz);
-      const float bx = sub(tile[3][j], qx), by = sub(tile[4][j], qy),
-                  bz = sub(tile[5][j], qz);
-      const float cx = sub(tile[6][j], qx), cy = sub(tile[7][j], qy),
-                  cz = sub(tile[8][j], qz);
-      const float la = sqrtf(sq_norm(ax, ay, az));
-      const float lb = sqrtf(sq_norm(bx, by, bz));
-      const float lc = sqrtf(sq_norm(cx, cy, cz));
-      const float numer =
-          add(add(mul(ax, sub(mul(by, cz), mul(bz, cy))),
-                  mul(ay, sub(mul(bz, cx), mul(bx, cz)))),
-              mul(az, sub(mul(bx, cy), mul(by, cx))));
-      const float dab = dot(ax, ay, az, bx, by, bz);
-      const float dbc = dot(bx, by, bz, cx, cy, cz);
-      const float dac = dot(ax, ay, az, cx, cy, cz);
-      const float denom =
-          add(add(add(mul(mul(la, lb), lc), mul(dab, lc)), mul(dac, lb)),
-              mul(dbc, la));
-      acc = add(acc, mul(2.f, atan2f(numer, denom)));
+      acc = add(acc, tuch::solid_angle(qx, qy, qz, &tile[0][j], TF));
     }
   }
   if (live) dst[((int64_t)b * splits + s) * Q + q] = mul(acc, scale);
 }
 
-// out[b, q] = scale * sum over s, in order, of partial[b, s, q].
-__global__ void winding_sum_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ out, int Q,
-                                   int splits, int64_t total, float scale) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t b = t / Q;
-  const int64_t q = t - b * Q;
-  const float* p = partial + b * splits * (int64_t)Q + q;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc = add(acc, p[(int64_t)s * Q]);
-  out[t] = mul(acc, scale);
-}
-
 }  // namespace
 
-// points, tris, out: device pointers. chunk: triangles per split, a
-// multiple of 128; splits = ceil(F / chunk). partial: device scratch of
-// B * splits * Q floats when splits > 1 (unused, may be null, when
-// splits == 1). scale: 1 / (4 pi). stream: a cudaStream_t. Allocates
-// nothing and does not synchronise. Returns the cudaError_t of the launch.
 extern "C" int tuch_winding_numbers(const void* points, const void* tris,
                                     void* out, void* partial, int B, int Q,
                                     int F, int chunk, float scale,
@@ -157,11 +101,8 @@ extern "C" int tuch_winding_numbers(const void* points, const void* tris,
                                      F, chunk, splits > 1 ? 1.f : scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int64_t total = (int64_t)B * Q;
-  winding_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), Q,
-      splits, total, scale);
-  return (int)cudaGetLastError();
+  return tuch::sum_partials(static_cast<const float*>(partial),
+                            static_cast<float*>(out), B, Q, splits, scale, s);
 }
 
 extern "C" const char* tuch_cuda_error_string(int err) {

@@ -14,7 +14,8 @@ column order is kept, so the attention layout is unchanged.
 state across: they take the fields of the JAX package's ContactAssets,
 SegmentTables and GMMPrior as numpy arrays (or the same fields made by
 this package's numpy functions, as the runtime passes) and build this
-package's.
+package's. ``winding_clusters_from_numpy`` does the same for the tables of
+the hierarchical winding numbers (WindingClusters).
 """
 
 import re
@@ -123,6 +124,20 @@ def prior_from_numpy(means, precisions, nll_weights, device='cpu'):
     from tuch_tpu_torch.losses.prior import GMMPrior
     return GMMPrior(*(torch.tensor(np.asarray(x, np.float32), device=device)
                       for x in (means, precisions, nll_weights)))
+
+
+def winding_clusters_from_numpy(fields, device='cpu'):
+    """WindingClusters on `device` from the fields of the JAX package's
+    (a WindingClusters, or a mapping of its fields): the four tables as
+    int64 tensors, the five sizes as ints."""
+    from tuch_tpu_torch.ops.winding_hier import WindingClusters
+    if not isinstance(fields, Mapping):
+        fields = fields._asdict()
+    tables = ('face_perm', 'faces_sorted', 'vert_perm', 'vert_inv')
+    return WindingClusters(**{
+        k: torch.tensor(np.asarray(fields[k]), dtype=torch.long,
+                        device=device) if k in tables else int(fields[k])
+        for k in WindingClusters._fields})
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
