@@ -9,16 +9,21 @@ exit, no result line) if any check fails:
   1. build   the CUDA kernels from tuch_tpu_torch/csrc/, one nvcc each, in
              parallel, with each kernel's ptxas line;
   2. kernel  the attention kernel against its plain PyTorch version on the
-             card at the serving shapes, fp32 and bf16, and its time beside
-             the plain version's, a library call's and the card's bound;
+             card, fp32 and bf16, at the serving shapes and at N on both
+             sides of its tile edges (1 to 300, head dims 32 and 64), and
+             its time at B=64 beside the plain version's, a library call's
+             and the card's bound (CUDA-graph replays: device time only);
   3. serve   the HTTP server with the ViT-S/16 backbone at full width on the
              synthetic 6890-vertex body: a single /predict and a concurrent
              burst that fills a micro-batch bucket; the attention kernel must
-             launch 12 times per device forward;
-  4. serve   the same with the ResNet-50 backbone;
-  5. parity  the card's vertices against the port's CPU path, same weights
-             and image, for both backbones;
-  6. times   B=1 forward latency and B=64 images/s for both backbones.
+             launch 12 times per device forward; then the same with
+             --dtype bfloat16 (the bf16 kernel, 12 launches per forward);
+  4. serve   the same with the ResNet-50 backbone, fp32 and bf16;
+  5. parity  the card's fp32 vertices against the port's CPU path, same
+             weights and image, and the card's bf16 vertices against the
+             card's fp32 ones (within BF16_VERTEX_ATOL), for both backbones;
+  6. times   B=1 forward latency and B=64 images/s for both backbones in
+             both dtypes, each with a torch.profiler breakdown.
 
 and the SMPLify-DC slice, on the same body with every contact asset:
 
@@ -74,11 +79,19 @@ import torch
 # rate of each input type (fp32 outside the tensor cores, bf16 on them).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12              # the fp32 attention kernel runs 3xTF32
 
 VIT_S16 = dict(N=196, C=384, H=6)   # 224x224 / 16x16 patches
 VIT_T8 = dict(N=64, C=64, H=2)      # 64x64 / 8x8 patches
 ODD = dict(N=197, C=384, H=6)       # a ragged last tile of queries and keys
+# N on both sides of the kernel's tile edges (16 query rows per warp, 64 per
+# block, key tiles of 32 (fp32) or 64 (bf16)), at head dims 64 and 32
+EDGES = [dict(N=n, C=c, H=2) for n in (1, 15, 16, 17, 64, 196, 197, 300)
+         for c in (128, 64)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# card bf16 vs card fp32 vertices, same weights and image: the bar of
+# tests/test_torch_port_bf16.py (BF16_VERTEX_ATOL), metres
+BF16_VERTEX_ATOL = 5e-3
 SERVE_BUCKET = 4
 VIT_S16_DEPTH = 12
 
@@ -130,14 +143,38 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20):
+    """Device time of fn() (ms): iters calls captured in one CUDA graph and
+    replayed, so the host's per-call cost does not enter."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(graph.replay, iters=3, warmup=1) / iters
+    del graph
+    return ms
+
+
 def mha_bound(B, N, C, H, dtype):
-    """Least time (ms) for the attention of one launch, and its bound."""
+    """Least time (ms) for the attention of one launch on the route the
+    kernel takes, the bound ('bytes' or 'operations') and the route: bf16
+    on the tensor cores; fp32 in 3xTF32, three TF32 products per product."""
     hd = C // H
     nbytes = (3 * C + C) * N * B * torch.finfo(dtype).bits // 8
     flops = 4 * B * H * N * N * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    if dtype == torch.bfloat16:
+        t_ops, route = flops / PEAK_FLOPS[dtype], 'bf16 tensor cores'
+    else:
+        t_ops, route = 3 * flops / TF32_FLOPS, '3xTF32 tensor cores'
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
+                                       else 'operations'), route
 
 
 # ---------------------------------------------------------------------------
@@ -159,34 +196,36 @@ def phase_kernels(results):
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {}
+    shapes = [(s, B) for s in (VIT_S16, VIT_T8, ODD) for B in (1, 64)]
+    shapes += [(s, 3) for s in EDGES]
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in (VIT_S16, VIT_T8, ODD):
-            for B in (1, 64):
-                N, C, H = shape['N'], shape['C'], shape['H']
-                x = torch.randn(B, N, 3 * C, device=dev, generator=gen)
-                x = x.to(dtype)
-                got = A.mha_cuda(x, H)
-                want = A.mha_reference(x, H)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                print(f'[kernel] mha {str(dtype)[6:]} B={B} N={N} C={C} '
-                      f'H={H}: max_abs_err {err:.3g} (tol {TOL[dtype]})',
-                      flush=True)
-                check(err <= TOL[dtype] and got.shape == want.shape,
-                      f'mha {dtype} B={B} N={N}: err {err}')
-                worst[dtype] = max(worst.get(dtype, 0.0), err)
+        for shape, B in shapes:
+            N, C, H = shape['N'], shape['C'], shape['H']
+            x = torch.randn(B, N, 3 * C, device=dev, generator=gen)
+            x = x.to(dtype)
+            got = A.mha_cuda(x, H)
+            want = A.mha_reference(x, H)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f'[kernel] mha {str(dtype)[6:]} B={B} N={N} C={C} '
+                  f'H={H}: max_abs_err {err:.3g} (tol {TOL[dtype]})',
+                  flush=True)
+            check(err <= TOL[dtype] and got.shape == want.shape,
+                  f'mha {dtype} B={B} N={N}: err {err}')
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
     B, N, C, H = 64, VIT_S16['N'], VIT_S16['C'], VIT_S16['H']
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(B, N, 3 * C, device=dev, generator=gen).to(dtype)
         q, k, v = x.view(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        ms = cuda_ms(lambda: A.mha_cuda(x, H))
-        plain_ms = cuda_ms(lambda: A.mha_reference(x, H))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        bound_ms, bound_by = mha_bound(B, N, C, H, dtype)
+        ms = graph_ms(lambda: A.mha_cuda(x, H))
+        plain_ms = graph_ms(lambda: A.mha_reference(x, H))
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by, route = mha_bound(B, N, C, H, dtype)
         print(f'[kernel] mha {str(dtype)[6:]} B={B} N={N} C={C} H={H}: '
               f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
               f'sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms '
-              f'({bound_by}), {bound_ms / ms:.1%} of bound', flush=True)
+              f'({bound_by}, {route}), {bound_ms / ms:.1%} of bound '
+              f'(CUDA-graph replay, device time)', flush=True)
         results[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
                               max_abs_err=worst[dtype])
@@ -223,24 +262,27 @@ def _check_prediction(code, body, num_verts, what):
           f'{what}: non-finite outputs')
 
 
-def phase_serve(backbone, launches):
+def phase_serve(backbone, dtype, launches):
     """Serve a few requests; returns the warm predictor (batcher closed)."""
     from tuch_tpu_torch import constants
     from tuch_tpu_torch.cli.serve import build_server
     from tuch_tpu_torch.ops import attention as A
+    tag = f'{backbone} {dtype}'
     t0 = time.perf_counter()
     httpd = build_server(SimpleNamespace(
         checkpoint=None, synthetic=True, img_res=224,
         synthetic_num_verts=None, max_batch=SERVE_BUCKET,
-        batch_wait_ms=500.0, backbone=backbone, device='cuda',
+        batch_wait_ms=500.0, backbone=backbone, device='cuda', dtype=dtype,
         host='127.0.0.1', port=0))
     predictor = httpd.predictor
     check(predictor.num_verts == constants.SMPL_NUM_VERTS,
           f'body has {predictor.num_verts} vertices')
+    check(predictor.hmr.dtype == getattr(torch, dtype),
+          f'{tag}: HMR computes in {predictor.hmr.dtype}')
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     url = f'http://127.0.0.1:{httpd.server_address[1]}'
-    print(f'[serve {backbone}] built and warmed {predictor._buckets} in '
+    print(f'[serve {tag}] built and warmed {predictor._buckets} in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     try:
         code, health = _http(url + '/healthz')
@@ -275,14 +317,14 @@ def phase_serve(backbone, launches):
         check(m['batch_size_max'] == SERVE_BUCKET,
               f'the burst did not fill a bucket of {SERVE_BUCKET}: {m}')
         per_forward = VIT_S16_DEPTH if backbone == 'vit_s16' else 0
-        print(f'[serve {backbone}] {SERVE_BUCKET + 1} requests answered 200 '
+        print(f'[serve {tag}] {SERVE_BUCKET + 1} requests answered 200 '
               f'in {forwards} device forwards (batch sizes up to '
               f'{m["batch_size_max"]}); mha launches {count}, expected '
               f'{per_forward} per forward; p50 latency '
               f'{m["forward_latency_ms_p50"]} ms', flush=True)
         check(count == per_forward * forwards,
-              f'mha launched {count} times in {forwards} forwards')
-        launches[backbone] = count
+              f'{tag}: mha launched {count} times in {forwards} forwards')
+        launches[tag] = count
         code, body = _http(url + '/predict', {'image_b64': 'not base64!'})
         check(code == 400, f'bad payload answered {code}')
     finally:
@@ -294,21 +336,29 @@ def phase_serve(backbone, launches):
     return predictor
 
 
-def phase_parity(backbone, gpu_predictor):
-    """The card's outputs against the port's CPU path on the same image."""
+def phase_parity(backbone, card_fp32, card_bf16):
+    """The card's fp32 outputs against the port's CPU path on the same
+    image (tol 1e-3), and the card's bf16 ones against the card's fp32 ones
+    (tol BF16_VERTEX_ATOL)."""
     from PIL import Image
     from tuch_tpu_torch.cli.serve import TuchPredictor
     cpu = TuchPredictor(synthetic=True, img_res=224, backbone=backbone,
                         device='cpu')
     with Image.open(io.BytesIO(base64.b64decode(_png_b64(7)))) as im:
         norm = cpu._crop(np.asarray(im.convert('RGB')), {})
-    got = gpu_predictor._run_forward(norm)
-    want = cpu._run_forward(norm)
-    errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
-    print(f'[parity {backbone}] card vs CPU max abs diff: pose {errs[0]:.3g}'
-          f', betas {errs[1]:.3g}, camera {errs[2]:.3g}, cam_t '
-          f'{errs[3]:.3g}, vertices {errs[4]:.3g} (tol 1e-3)', flush=True)
-    check(errs[4] <= 1e-3, f'{backbone} vertices differ by {errs[4]}')
+    got = card_fp32._run_forward(norm)
+    names = ('pose', 'betas', 'camera', 'cam_t', 'vertices')
+    for what, a, b, tol in (
+            ('card fp32 vs CPU fp32', got, cpu._run_forward(norm), 1e-3),
+            ('card bf16 vs card fp32', card_bf16._run_forward(norm), got,
+             BF16_VERTEX_ATOL)):
+        check(all(x.dtype == np.float32 for x in a), f'{what}: not float32')
+        errs = [float(np.abs(x - y).max()) for x, y in zip(a, b)]
+        print(f'[parity {backbone}] {what} max abs diff: ' + ', '.join(
+            f'{n} {e:.3g}' for n, e in zip(names, errs))
+            + f' (vertex tol {tol})', flush=True)
+        check(errs[4] <= tol, f'{backbone} {what}: vertices differ by '
+              f'{errs[4]}')
 
 
 def device_breakdown(fn, top=6):
@@ -332,7 +382,7 @@ def device_breakdown(fn, top=6):
                          e.count) for e in rows]
 
 
-def phase_times(backbone, predictor, card):
+def phase_times(tag, predictor, card):
     norm = np.random.RandomState(0).randn(1, 224, 224, 3).astype(np.float32)
     for _ in range(3):
         predictor._run_forward(norm)
@@ -343,7 +393,7 @@ def phase_times(backbone, predictor, card):
         lat.append(1e3 * (time.perf_counter() - t0))
     x = torch.randn(64, 224, 224, 3, device='cuda')
     ms64 = cuda_ms(lambda: predictor.forward(x), iters=10, warmup=2)
-    print(f'[times {backbone}] B=1 forward {np.median(lat):.3f} ms median '
+    print(f'[times {tag}] B=1 forward {np.median(lat):.3f} ms median '
           f'of 20 (host clock, copies in and out); B=64 {ms64:.3f} ms = '
           f'{64e3 / ms64:.1f} images/s (CUDA events, input on the card); '
           f'TF32 cuDNN {torch.backends.cudnn.allow_tf32}; card: {card}',
@@ -352,14 +402,14 @@ def phase_times(backbone, predictor, card):
                       ('B=64', lambda: predictor.forward(x))):
         wall, busy, rows = device_breakdown(fn)
         if busy <= 0:
-            print(f'[profile {backbone} {label}] the profiler recorded no '
+            print(f'[profile {tag} {label}] the profiler recorded no '
                   'device time', flush=True)
             continue
-        print(f'[profile {backbone} {label}] host wall {wall:.3f} ms, device '
+        print(f'[profile {tag} {label}] host wall {wall:.3f} ms, device '
               f'busy {busy:.3f} ms, idle share {1 - busy / wall:.1%} '
               f'(torch.profiler, one forward)', flush=True)
         for name, ms, calls in rows:
-            print(f'[profile {backbone} {label}]   {ms:8.3f} ms '
+            print(f'[profile {tag} {label}]   {ms:8.3f} ms '
                   f'{ms / busy:6.1%} x{calls:<4d} {name}', flush=True)
 
 
@@ -917,10 +967,12 @@ def main() -> int:
     kernels, launches = {}, {}
     phase_build()
     phase_kernels(kernels)
-    predictors = {bb: phase_serve(bb, launches)
-                  for bb in ('vit_s16', 'resnet50')}
-    for bb, pred in predictors.items():
-        phase_parity(bb, pred)
+    predictors = {f'{bb} {dt}': phase_serve(bb, dt, launches)
+                  for bb in ('vit_s16', 'resnet50')
+                  for dt in ('float32', 'bfloat16')}
+    for bb in ('vit_s16', 'resnet50'):
+        phase_parity(bb, predictors[f'{bb} float32'],
+                     predictors[f'{bb} bfloat16'])
 
     from tuch_tpu_torch import runtime as rt
     t0 = time.perf_counter()
@@ -937,15 +989,17 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
-    for bb, pred in predictors.items():
-        phase_times(bb, pred, card)
+    for tag, pred in predictors.items():
+        phase_times(tag, pred, card)
     phase_fit_times(fit_rt, card, demo_out)
     phase_routes(fit_rt, kernels, launches)
 
-    k = kernels[torch.float32]  # the serving path runs the fp32 kernel
-    rows = [dict(name='mha', source='tuch_tpu_torch/csrc/mha.cu',
+    # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
+    rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',
                  replaces='tuch_tpu/ops/attention_pallas.py:70',
-                 launches=launches['vit_s16'], **k)]
+                 launches=launches[f'vit_s16 {dt}'],
+                 **kernels[getattr(torch, dt)])
+            for name, dt in (('mha', 'float32'), ('mha_bf16', 'bfloat16'))]
     for name, src, rep in (
             ('winding', 'winding.cu', 'contact_pallas.py:85'),
             ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),

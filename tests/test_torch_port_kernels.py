@@ -29,9 +29,12 @@ from tuch_tpu_torch.ops import winding_hier as PH
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (B, N, C, heads): vit_s16 at 224 (unaligned N), an aligned toy shape, an
-# odd N whose last query and key tiles are ragged, and vit_t8 at 64
+# odd N whose last query and key tiles are ragged, and vit_t8 at 64; then
+# N on both sides of the kernel's tile edges (16 query rows per warp, 64
+# per block, key tiles of 32 or 64) at head dims 64 and 32
+EDGE_N = (1, 15, 16, 17, 64, 196, 197, 300)
 SHAPES = [(2, 196, 384, 6), (3, 128, 64, 2), (2, 197, 384, 6),
-          (4, 64, 64, 2)]
+          (4, 64, 64, 2)] + [(2, n, c, 2) for n in EDGE_N for c in (128, 64)]
 
 
 def _qkv(B, N, C, dtype=torch.float32, device='cpu'):
@@ -204,6 +207,13 @@ def test_mha_kernel_matches_plain_version_on_card(cuda_device, shape, dtype,
 def test_mha_cuda_rejects_unsupported_head_dim_on_card(cuda_device):
     with pytest.raises(ValueError, match='head dims'):
         A.mha_cuda(_qkv(1, 8, 48, device=cuda_device), 1)
+
+
+@pytest.mark.cuda
+def test_mha_cuda_rejects_a_misaligned_tensor_on_card(cuda_device):
+    flat = _qkv(1, 9, 64, device=cuda_device).reshape(-1)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        A.mha_cuda(flat[1:1 + 8 * 192].view(1, 8, 192), 2)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ Endpoints:
 
 Usage:
   python -m tuch_tpu_torch.cli.serve --synthetic --backbone vit_s16
+  python -m tuch_tpu_torch.cli.serve --synthetic --backbone vit_s16 \
+      --dtype bfloat16
   python -m tuch_tpu_torch.cli.serve --checkpoint ckpt.pt --port 8000
 """
 
@@ -41,6 +43,7 @@ from PIL import Image
 from tuch_tpu_torch import constants, resolve_device
 from tuch_tpu_torch import runtime as rt
 from tuch_tpu_torch.data import transforms as T
+from tuch_tpu_torch.models import hmr as hmr_mod
 from tuch_tpu_torch.models.smpl import smpl_forward
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
@@ -72,17 +75,23 @@ class TuchPredictor:
     and runs ONE device forward. Every sample is independent of the others
     in the batch (convs, eval-mode BatchNorm, attention within an image,
     SMPL), so batched outputs match the B=1 path up to summation order.
+
+    dtype ('float32' or 'bfloat16') is the backbone's compute dtype; the
+    weights load as float32 and every output is float32 either way.
     """
 
-    def __init__(self, checkpoint=None, synthetic=False, img_res=224,
-                 num_verts=None, max_batch=1, batch_wait_ms=2.0,
-                 backbone='resnet50', device=None):
+    def __init__(self, checkpoint=None, synthetic=False, dtype='float32',
+                 img_res=224, num_verts=None, max_batch=1,
+                 batch_wait_ms=2.0, backbone='resnet50', device=None):
         self.device = resolve_device(device)
         self.img_res = img_res
         runtime = rt.build_runtime(
             device=self.device, synthetic=synthetic or None,
-            num_verts=num_verts, backbone=backbone, checkpoint=checkpoint)
-        self.hmr, self.smpl = runtime.hmr, runtime.smpl
+            num_verts=num_verts, backbone=backbone, checkpoint=checkpoint,
+            dtype=dtype)
+        # the backbone's weights cast to dtype once here, not per forward
+        self.hmr = hmr_mod.store_compute_weights(runtime.hmr)
+        self.smpl = runtime.smpl
         self.num_verts = int(self.smpl.v_template.shape[0])
         self._lock = threading.Lock()
         self.warm = False
@@ -321,7 +330,7 @@ def build_server(args) -> ThreadingHTTPServer:
     """
     predictor = TuchPredictor(
         checkpoint=args.checkpoint, synthetic=args.synthetic,
-        img_res=args.img_res,
+        dtype=getattr(args, 'dtype', 'float32'), img_res=args.img_res,
         num_verts=getattr(args, 'synthetic_num_verts', None),
         max_batch=getattr(args, 'max_batch', 1),
         batch_wait_ms=getattr(args, 'batch_wait_ms', 2.0),
@@ -345,6 +354,11 @@ def main(argv=None):
     p.add_argument('--img_res', type=int, default=224)
     p.add_argument('--synthetic_num_verts', type=int, default=None,
                    help='toy-scale synthetic body (tests/smokes)')
+    p.add_argument('--dtype', default='float32',
+                   choices=sorted(rt.COMPUTE_DTYPES),
+                   help='backbone compute dtype; bfloat16 runs the '
+                        'convolutions or the ViT in bf16 with float32 '
+                        'weights, LayerNorms and IEF head')
     p.add_argument('--max_batch', type=int, default=1,
                    help='micro-batching: group up to this many concurrent '
                         'requests into one device forward (power-of-two '

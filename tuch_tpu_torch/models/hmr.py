@@ -9,6 +9,17 @@ with running statistics, global mean pooling, and the 3-iteration IEF head
 with no activation. A ViT backbone lives under ``backbone.*``.
 
 Images come in NHWC, as in the JAX package; the ResNet permutes to NCHW.
+
+Compute dtype (``dtype``, float32 or bfloat16), as the JAX package's HMR:
+the image is cast to it, and the backbone runs in it (ResNet-50: the
+convolutions, BatchNorm, ReLU, max pool, residual adds and the mean pool;
+ViT: models/vit.py); its features are cast to float32 and the IEF head runs
+in float32. Parameters and BatchNorm statistics stay float32, so loading is
+the same for both dtypes: a convolution casts its weights to the input's
+dtype at each call (store_compute_weights casts them once instead, for
+serving), and BatchNorm takes a bfloat16 input with its float32
+statistics, computes in float32 and rounds its output once, as Flax's
+BatchNorm(dtype=bfloat16) does.
 """
 
 import math
@@ -25,22 +36,30 @@ N_ITER = 3  # IEF refinement steps
 RESNET50_STAGES = (3, 4, 6, 3)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (no bias) in the input's dtype, on float32 weights cast
+    per call (a no-op for a float32 input)."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype), None)
+
+
 class Bottleneck(nn.Module):
     """ResNet v1.5 bottleneck (1x1 -> 3x3 with the stride -> 1x1, x4)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+            Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
             nn.BatchNorm2d(planes * 4, eps=1e-5)) if downsample else None
 
     def forward(self, x):
@@ -61,16 +80,19 @@ class HMR(nn.Module):
     """Iterative SMPL regressor.
 
     forward(images (B, H, W, 3)) -> (rotmat (B, 24, 3, 3), betas (B, 10),
-    cam (B, 3)). The IEF loop starts from the mean parameters.
+    cam (B, 3)), all float32 whatever the compute dtype. The IEF loop
+    starts from the mean parameters.
     """
 
     def __init__(self, mean_pose6d, mean_shape, mean_cam,
-                 backbone: str = 'resnet50'):
+                 backbone: str = 'resnet50',
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.backbone_name = backbone
+        self.dtype = dtype
         if backbone == 'resnet50':
             # the reference's top-level module names, so its keys load as-is
-            self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
             self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
             self.relu = nn.ReLU(inplace=True)
             self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -82,7 +104,7 @@ class HMR(nn.Module):
                 inplanes = planes * 4
             nfeat = inplanes
         elif backbone in vit_mod.VIT_CONFIGS:
-            self.backbone = vit_mod.create_vit(backbone)
+            self.backbone = vit_mod.create_vit(backbone, dtype=dtype)
             nfeat = self.backbone.width
         else:
             raise ValueError(
@@ -101,13 +123,15 @@ class HMR(nn.Module):
                 persistent=False)
 
     def features(self, images):
+        """Pooled backbone features (B, width), float32."""
+        images = images.to(self.dtype)
         if self.backbone_name != 'resnet50':
             return self.backbone(images)
         x = images.permute(0, 3, 1, 2)
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for i in range(1, 5):
             x = getattr(self, f'layer{i}')(x)
-        return x.mean(dim=(2, 3))  # == AvgPool2d(7) for 224 inputs
+        return x.mean(dim=(2, 3)).float()  # == AvgPool2d(7) at 224
 
     def forward(self, images):
         xf = self.features(images)
@@ -125,9 +149,26 @@ class HMR(nn.Module):
         return rot6d_to_rotmat(pose).reshape(B, 24, 3, 3), shape, cam
 
 
+@torch.no_grad()
+def store_compute_weights(model: HMR) -> HMR:
+    """Store the backbone's Linear and convolution weights in the model's
+    compute dtype, in place, so that no call casts them again: the serving
+    predictor's bf16 copy, built once after its weights are loaded. The
+    outputs are the same bits as casting per call. BatchNorm and LayerNorm
+    parameters, BatchNorm statistics and the IEF head stay float32; a
+    float32 model is left as it is."""
+    if model.dtype != torch.float32:
+        for mod in model.modules():
+            if isinstance(mod, (Conv2d, vit_mod.Linear)):
+                mod.to(model.dtype)
+    return model
+
+
 def create_hmr(mean_pose6d, mean_shape, mean_cam,
-               backbone: str = 'resnet50') -> HMR:
-    return HMR(mean_pose6d, mean_shape, mean_cam, backbone=backbone)
+               backbone: str = 'resnet50',
+               dtype: torch.dtype = torch.float32) -> HMR:
+    return HMR(mean_pose6d, mean_shape, mean_cam, backbone=backbone,
+               dtype=dtype)
 
 
 @torch.no_grad()

@@ -58,8 +58,9 @@ def mha_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
         raise ValueError(f'qkv must be (B, N, 3 * heads * hd), got '
                          f'{tuple(qkv.shape)} with heads={heads}')
-    if not qkv.is_contiguous():
-        raise ValueError('mha_cuda needs a contiguous qkv tensor')
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError('mha_cuda needs a contiguous, 16-byte aligned qkv '
+                         'tensor (the kernel copies 16-byte chunks)')
     B, N, C3 = qkv.shape
     C = C3 // 3
     hd = C // heads

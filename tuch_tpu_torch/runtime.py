@@ -6,7 +6,9 @@ weights from a seed, replaced by a checkpoint (a reference .pt or the JAX
 package's .npz tree) when one is given. With contact on, the GMM pose
 prior and the contact assets (geodesic mask, faces, region and segment
 tables) are built too and held on the device; serving leaves it off and
-never builds the (V, V) geodesic matrix.
+never builds the (V, V) geodesic matrix. ``dtype`` is HMR's compute dtype
+(the JAX runtime's ``compute_dtype``); its weights load as float32 either
+way.
 """
 
 import os
@@ -14,6 +16,7 @@ import pickle
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from tuch_tpu_torch import assets as assets_mod
 from tuch_tpu_torch import config as cfg
@@ -31,6 +34,9 @@ from tuch_tpu_torch.ops.segments import build_segment_tables
 # init buffers (the runtime's mean params are used, as in the JAX package)
 # and BatchNorm's step counter.
 _IGNORED_KEYS = ('init_pose', 'init_shape', 'init_cam')
+
+# the names the CLIs take for HMR's compute dtype
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
 
 class Runtime(NamedTuple):
@@ -61,15 +67,20 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
                   backbone: str = 'resnet50',
                   checkpoint: Optional[str] = None,
                   with_contact: bool = False,
-                  with_segments: bool = True) -> Runtime:
+                  with_segments: bool = True,
+                  dtype: str = 'float32') -> Runtime:
     """Build SMPL and HMR in eval mode on `device` (CUDA by default), and
-    with_contact the GMM prior and the contact assets.
+    with_contact the GMM prior and the contact assets. HMR computes in
+    `dtype` ('float32' or 'bfloat16', a key of COMPUTE_DTYPES).
 
     synthetic=None picks the real assets when SMPL_NEUTRAL.pkl exists and
     says which it picked. The synthetic body, its contact extras and prior,
     and the random weights all come from seed 0.
     """
     dev = resolve_device(device)
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f'unknown compute dtype {dtype!r}; have '
+                         f'{sorted(COMPUTE_DTYPES)}')
     if synthetic is None:
         neutral = os.path.join(cfg.SMPL_MODEL_DIR, 'SMPL_NEUTRAL.pkl')
         synthetic = not os.path.isfile(neutral)
@@ -96,7 +107,8 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
             gmm = assets_mod.load_gmm_prior(os.path.join(
                 cfg.PRIOR_FOLDER, 'gmm_08.pkl'))
 
-    hmr = hmr_mod.create_hmr(*means, backbone=backbone)
+    hmr = hmr_mod.create_hmr(*means, backbone=backbone,
+                             dtype=COMPUTE_DTYPES[dtype])
     hmr_mod.init_weights(hmr)
     if checkpoint:
         load_hmr_weights(hmr, load_checkpoint(checkpoint))
