@@ -29,8 +29,11 @@ and the SMPLify-DC slice, on the same body with every contact asset:
 
   7. kernel  winding numbers, the masked nearest vertex, row gather and row
              scatter-add against their plain versions on the card, at the
-             slice's shapes, and each one's time at B=64 beside its plain
-             version's, its bound and a library call's;
+             slice's shapes (winding also on the posed B=64 body), and each
+             one's time at B=64 beside its plain version's, its bound and a
+             library call's (gather and scatter-add by CUDA-graph replay,
+             each one device kernel per call, with the host µs per call of
+             their wrappers and library calls at B=64 and 4);
   8. fit     the demo (demo_smplify_dc --synthetic, 4 images, 100 iterations,
              ResNet-50 SPIN init): finite outputs, a lower reprojection loss
              than the init's, and each kernel launched exactly its count per
@@ -466,7 +469,7 @@ def _hold_winding(label, pts, tris):
     from tuch_tpu_torch.ops import contact as PC
     from tuch_tpu_torch.ops import contact_kernels as CK
     got = CK.winding_numbers_tris_cuda(pts, tris)
-    want = PC.winding_numbers(pts, tris)
+    want = torch.cat(_chunked(PC.winding_numbers, pts, tris))
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     band = (want - 0.99).abs() < WN_BAND
@@ -547,9 +550,12 @@ def phase_slice_kernels(runtime, results):
             idx[1, :3] = V
         got = G.gather_rows_cuda(verts, idx)
         want = G.gather_rows_ref(verts, idx)
-        contrib = torch.randn(B, V, 3, device=verts.device,
-                              generator=torch.Generator(verts.device)
-                              .manual_seed(B))
+        # multiples of 2^-10 below 2 in magnitude: every row's sum is exact
+        # in fp32 whatever the order of the kernel's atomic additions, so
+        # the comparison cannot turn on that order
+        contrib = torch.randint(-2047, 2048, (B, V, 3), device=verts.device,
+                                generator=torch.Generator(verts.device)
+                                .manual_seed(B)) / 1024.0
         sc = G.scatter_add_rows_cuda(contrib, idx, V)
         sc_want = G.scatter_add_rows_ref(contrib, idx, V)
         torch.cuda.synchronize()
@@ -569,49 +575,117 @@ def phase_slice_kernels(runtime, results):
     tris = verts[:, faces]
     allowed = int(mask.sum().item())
     _, idx = CK.masked_min_dist_cuda(verts, mask)
-    idx_long = idx.long()[..., None].expand(-1, -1, 3)
-    contrib = torch.randn(B, V, 3, device=verts.device)
-    flat = (torch.arange(B, device=verts.device)[:, None] * V
-            + idx.long()).reshape(-1)
-    buf = torch.zeros(B * V, 3, device=verts.device)
-    src = contrib.reshape(-1, 3)
+    err['winding'] = max(err['winding'], _hold_winding(
+        f'posed B={B} self', verts, tris))
     plans = {
         'winding': (lambda: CK.winding_numbers_tris_cuda(verts, tris),
-                    lambda: _chunked(PC.winding_numbers, verts, tris), None,
+                    lambda: _chunked(PC.winding_numbers, verts, tris),
                     bound(WINDING_OPS_PER_PAIR * B * V * tris.shape[1],
                           4 * B * (3 * V + 9 * tris.shape[1] + V))),
         'masked_min': (lambda: CK.masked_min_dist_cuda(verts, mask),
                        lambda: _chunked(
                            lambda v: PC.masked_min_dist(v, mask), verts),
-                       None,
                        bound(B * (V * V + MASKED_OPS_ALLOWED * allowed),
                              V * V + 12 * B * V + 8 * B * V)),
-        'gather': (lambda: G.gather_rows_cuda(verts, idx),
-                   lambda: G.gather_rows_ref(verts, idx),
-                   lambda: torch.gather(verts, 1, idx_long),
-                   bound(0, 4 * B * (3 * V + V + 3 * V))),
-        'scatter_add': (lambda: G.scatter_add_rows_cuda(contrib, idx, V),
-                        lambda: G.scatter_add_rows_ref(contrib, idx, V),
-                        lambda: buf.index_add_(0, flat, src),
-                        bound(3 * B * V, 4 * B * (3 * V + V + 3 * V))),
     }
-    for name, (kern, plain, lib, (bound_ms, bound_by)) in plans.items():
-        heavy = name in ('winding', 'masked_min')
-        ms = cuda_ms(kern, iters=5 if heavy else 50, warmup=1)
-        plain_ms = cuda_ms(plain, iters=2 if heavy else 20, warmup=1)
-        lib_ms = None if lib is None else cuda_ms(lib, iters=50, warmup=2)
-        lib_txt = 'no one-call library equivalent' if lib is None else \
-            f'library {lib_ms:.4f} ms'
+    for name, (kern, plain, (bound_ms, bound_by)) in plans.items():
+        ms = cuda_ms(kern, iters=5, warmup=1)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
         print(f'[kernel] {name} B={B} V={V}: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms'
-              f'{f" ({B // PLAIN_CHUNK} x B={PLAIN_CHUNK})" if heavy else ""}, '
-              f'{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), '
-              f'{bound_ms / ms:.1%} of bound', flush=True)
-        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+              f'{plain_ms:.4f} ms ({B // PLAIN_CHUNK} x B={PLAIN_CHUNK}), '
+              f'no one-call library equivalent, bound {bound_ms:.4f} ms '
+              f'({bound_by}), {bound_ms / ms:.1%} of bound', flush=True)
+        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                              bound_ms=bound_ms, bound_by=bound_by,
                              max_abs_err=err[name])
-    del verts, tris, contrib, buf
+    _time_rows(verts, idx, results, err)
+    del verts, tris
     torch.cuda.empty_cache()
+
+
+def host_us(fn, calls=1000):
+    """Host µs per call of fn: the host clock over `calls` calls, then one
+    synchronize. What a host-bound caller (the fit at B=4) feels."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def _row_calls(verts, idx):
+    """{name: (kernel, plain, {library call: fn}, (bound ms, bound by))} of
+    kernels 5 and 6 on these inputs. The scatter's library call zeroes its
+    output, as kernel 6 does."""
+    from tuch_tpu_torch.ops import gather as G
+    B, V, _ = verts.shape
+    flat = (torch.arange(B, device=verts.device)[:, None] * V
+            + idx.long()).reshape(-1)
+    idx_long = idx.long()[..., None].expand(-1, -1, 3)
+    rows = verts.reshape(-1, 3)
+    contrib = torch.randn(B, V, 3, device=verts.device)
+    src = contrib.reshape(-1, 3)
+    buf = torch.empty(B * V, 3, device=verts.device)
+
+    def zero_index_add():
+        buf.zero_()
+        buf.index_add_(0, flat, src)
+
+    nbytes = 4 * B * (3 * V + V + 3 * V)
+    return {
+        'gather': (lambda: G.gather_rows_cuda(verts, idx),
+                   lambda: G.gather_rows_ref(verts, idx),
+                   {'torch.gather': lambda: torch.gather(verts, 1, idx_long),
+                    'index_select': lambda: torch.index_select(rows, 0,
+                                                               flat)},
+                   bound(0, nbytes)),
+        'scatter_add': (lambda: G.scatter_add_rows_cuda(contrib, idx, V),
+                        lambda: G.scatter_add_rows_ref(contrib, idx, V),
+                        {'zero_ + index_add_': zero_index_add},
+                        bound(3 * B * V, nbytes)),
+    }
+
+
+def _time_rows(verts, idx, results, err):
+    """Kernels 5 and 6 at the training batch: the kernel, its plain version
+    and its library calls timed by CUDA-graph replay (device time only; a
+    kernel shorter than its wrapper's host time is otherwise timed by the
+    host), each beside the bound; then the host µs per call of the wrapper
+    and of each library call at B=64 and at the demo's B=4, where the
+    device time per call is below the host's. The library yardstick is the
+    faster call."""
+    B, V, _ = verts.shape
+    small = _row_calls(verts[:FIT_IMAGES].contiguous(),
+                       idx[:FIT_IMAGES].contiguous())
+    for name, (kern, plain, libs, (bound_ms, bound_by)) in \
+            _row_calls(verts, idx).items():
+        ms = graph_ms(kern, iters=50)
+        plain_ms = graph_ms(plain, iters=20)
+        lib_ms = {k: graph_ms(f, iters=50) for k, f in libs.items()}
+        host = {}
+        for tag, (k4, _, libs4, _) in ((f'B={B}', (kern, plain, libs, None)),
+                                       (f'B={FIT_IMAGES}', small[name])):
+            host[f'{tag} wrapper'] = host_us(k4)
+            host.update({f'{tag} {k}': host_us(f) for k, f in libs4.items()})
+        print(f'[kernel] {name} B={B} V={V} Q={V}: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, ' + ', '.join(
+                  f'{k} {t:.4f} ms' for k, t in lib_ms.items())
+              + f', bound {bound_ms:.4f} ms ({bound_by}), '
+              f'{bound_ms / ms:.1%} of bound (CUDA-graph replays, device '
+              'time); host µs per call: ' + ', '.join(
+                  f'{k} {t:.2f}' for k, t in host.items()), flush=True)
+        results[name] = dict(ms=ms, plain_ms=plain_ms,
+                             library_ms=min(lib_ms.values()),
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             max_abs_err=err[name])
+        # one kernel per call on the device: no memset pass, nothing else
+        _, _, work = device_breakdown(kern)
+        print(f'[kernel] {name}: device work of one call (torch.profiler): '
+              f'{work}', flush=True)
+        check(len(work) == 1 and work[0][2] == 1
+              and f'{name}_rows' in work[0][0],
+              f'{name}: device work of one call {work}')
 
 
 def route_counters():

@@ -168,6 +168,131 @@ def test_split_covers_the_axis_in_whole_tiles():
         assert base * splits <= max(base, CK.TARGET_BLOCKS + base)
 
 
+@pytest.mark.parametrize('V,Q', [(6890, 6890), (2049, 1029), (300, 3000),
+                                 (5, 37), (1, 1)])
+@pytest.mark.parametrize('B', [1, 4, 64, 200])
+def test_scatter_plan_covers_the_rows_in_whole_slices_and_fills_the_sms(
+        B, V, Q):
+    """Kernel 6's plan: C blocks per batch item cover [0, V) in slices of S
+    rows and [0, Q) in runs of P contributions, no block past the last; as
+    many blocks as fill the SMs once, as far as clusters of at most 8 go."""
+    C, S, P = G.scatter_plan(B, V, Q)
+    assert 1 <= C <= G.MAX_CLUSTER
+    assert S * C >= V > S * (C - 1) and P * C >= Q
+    assert B * C <= max(B, G.SCATTER_BLOCKS)       # one wave
+    assert B * C >= min(G.SCATTER_BLOCKS // 2, B * G.MAX_CLUSTER, B * V)
+    if B <= 4 and V >= G.MAX_CLUSTER:
+        assert C == G.MAX_CLUSTER     # small batches: the largest cluster
+
+
+@pytest.mark.parametrize('B,Q,V,ok', [
+    (64, 6890, 6890, True),
+    (1, (2 ** 31 - 1) // 3, 1, True),
+    (1, (2 ** 31 - 1) // 3 + 1, 1, False),      # 3 B Q reaches 2^31
+    (2 ** 16 - 1, 2 ** 15, 7, False),
+    (2, 3, 2 ** 30, False),                     # 3 B V reaches 2^31
+    (2 ** 16, 1, 1, False),                     # the batch is blockIdx.y
+])
+def test_scatter_size_check_refuses_what_32_bit_indexing_cannot_address(
+        B, Q, V, ok):
+    if ok:
+        G.check_sizes(B, Q, V, 'scatter')
+    else:
+        with pytest.raises(ValueError, match='too large'):
+            G.check_sizes(B, Q, V, 'scatter')
+
+
+class _NoLock:
+    def __enter__(self):
+        raise AssertionError('the lock was taken')
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_build_load_returns_a_loaded_library_without_the_lock(monkeypatch):
+    from tuch_tpu_torch.ops import _build
+    lib = object()
+    monkeypatch.setattr(_build, '_libs', {'gather': lib})
+    monkeypatch.setattr(_build, '_lock', _NoLock())
+    assert _build.load('gather') is lib
+
+
+def test_build_entry_resolves_a_symbol_once(monkeypatch):
+    import ctypes
+    from types import SimpleNamespace
+    from tuch_tpu_torch.ops import _build
+    fn = SimpleNamespace(argtypes=None, restype=None)
+    lib = SimpleNamespace(tuch_gather_rows=fn)
+    monkeypatch.setattr(_build, '_libs', {'gather': lib})
+    monkeypatch.setattr(_build, '_entries', {})
+    monkeypatch.setattr(_build, '_lock', _NoLock())
+    args = [ctypes.c_void_p, ctypes.c_int]
+    assert _build.entry('gather', 'tuch_gather_rows', args) == (lib, fn)
+    assert fn.argtypes == args and fn.restype is ctypes.c_int
+
+    def no_load(name):
+        raise AssertionError('resolved twice')
+    monkeypatch.setattr(_build, 'load', no_load)
+    assert _build.entry('gather', 'tuch_gather_rows', args) == (lib, fn)
+
+
+def _atan_coefficients():
+    """P's coefficients in csrc/winding.cu, from the highest term down."""
+    import re
+    src = open(os.path.join(REPO, 'tuch_tpu_torch', 'csrc',
+                            'winding.cu')).read()
+    body = src[src.index('float atan2_poly'):src.index('float r = p * t;')]
+    first = re.search(r'float p = ([-+0-9.e]+)f;', body).group(1)
+    rest = re.findall(r'p = fmaf\(p, s, ([-+0-9.e]+)f\);', body)
+    return np.array([first] + rest, np.float64).astype(np.float32)
+
+
+def _atan2_poly(y, x):
+    """csrc/winding.cu atan2_poly in float32 (exact reciprocal; FMA in
+    float64, rounded once)."""
+    y, x = np.float32(y), np.float32(x)
+    ax, ay = np.abs(x), np.abs(y)
+    t = np.float32(np.minimum(ax, ay) / np.maximum(np.maximum(ax, ay),
+                                                   np.float32(1e-30)))
+    s = np.float32(t * t)
+    coef = _atan_coefficients()
+    p = coef[0]
+    for c in coef[1:]:
+        p = np.float32(np.float64(p) * np.float64(s) + np.float64(c))
+    r = np.float32(p * t)
+    r = np.where(ay > ax, np.float32(np.pi / 2) - r, r)
+    r = np.where(np.signbit(x), np.float32(np.pi) - r, r)
+    return np.copysign(r, y).astype(np.float32)
+
+
+def test_winding_atan_polynomial_is_minimax_to_1_5e_7_relative():
+    coef = _atan_coefficients()
+    assert len(coef) == 9 and coef[-1] == 1.0     # P(0) = 1: no bias at 0
+    t = np.linspace(0, 1, 200001)[1:].astype(np.float32)
+    got = _atan2_poly(t, np.ones_like(t))
+    want = np.arctan(t.astype(np.float64))
+    assert (np.abs(got - want) / want).max() <= 1.5e-7
+
+
+def test_winding_atan2_polynomial_keeps_ieee_signs_and_zeros():
+    """The cases that decide a face's contribution at a corner or a
+    degenerate face are IEEE's exactly; elsewhere within 4e-7 of atan2."""
+    for y in (0.0, -0.0):
+        for x in (0.0, -0.0, 2.5, -2.5):
+            got, want = _atan2_poly(y, x), np.arctan2(np.float32(y),
+                                                      np.float32(x))
+            assert got == want and np.signbit(got) == np.signbit(want)
+    rng = np.random.RandomState(5)
+    y = (rng.randn(20000) * 10.0 ** rng.uniform(-6, 3, 20000)).astype(
+        np.float32)
+    x = (rng.randn(20000) * 10.0 ** rng.uniform(-6, 3, 20000)).astype(
+        np.float32)
+    err = np.abs(_atan2_poly(y, x) - np.arctan2(y.astype(np.float64),
+                                                x.astype(np.float64)))
+    assert err.max() <= 4e-7
+
+
 def test_plain_gather_and_scatter_handle_out_of_range_indices():
     vals = torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3)
     idx = torch.tensor([[0, -1, 3, 4], [2, 2, 1, -5]], dtype=torch.int32)
@@ -302,6 +427,75 @@ def test_gather_and_scatter_kernels_match_plain_versions_on_card(
     v = vals.clone().requires_grad_(True)
     G.gather_rows(v, idx).backward(contrib)
     assert ((v.grad - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+
+
+def _row_case(kind, B, V, Q, rng):
+    if kind == 'out_of_range':
+        return rng.choice(np.array([-1, V, -7, V + 3, 2 ** 31 - 1, -2 ** 31],
+                                   np.int64), (B, Q)).astype(np.int32)
+    if kind == 'one_row':
+        return np.full((B, Q), V // 2, np.int32)
+    idx = rng.randint(-2, V + 2, (B, Q)).astype(np.int32)
+    idx[:, :2] = [0, V - 1]     # the rows whose 16-byte word another item's
+    return idx                  # rows share: the narrow reductions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind,B,V,Q', [
+    ('q_not_a_multiple_of_4', 3, 300, 1029),
+    ('batch_of_one', 1, 6890, 6890),
+    ('v_below_one_slice', 2, 5, 37),                 # one row a block
+    ('v_not_a_multiple_of_the_slice', 4, 1001, 900),
+    ('q_below_the_cluster', 3, 40, 5),               # blocks with no q
+    ('large_batch_one_block_per_item', 200, 64, 100),
+    ('out_of_range', 2, 50, 70),
+    ('one_row', 2, 300, 3000),
+    ('tile_across_a_batch_boundary', 5, 257, 258),
+])
+def test_gather_and_scatter_kernels_edge_cases_on_card(cuda_device, kind, B,
+                                                       V, Q):
+    """Gather bitwise equal to the plain version, scatter at rtol 1e-5
+    (+1e-6) against index_add_, one launch each, at the shapes where the
+    kernels' tiles, slices and 16-byte stores have edges: spans that start
+    or end off a 16-byte boundary, a ragged last tile or slice, every index
+    out of range, every index on one row."""
+    rng = np.random.RandomState(B * 100003 + V * 7 + Q)
+    idx = torch.from_numpy(_row_case(kind, B, V, Q, rng)).to(cuda_device)
+    vals = torch.from_numpy(rng.randn(B, V, 3).astype(np.float32)).to(
+        cuda_device)
+    # multiples of 2^-10 below 2 in magnitude: every row's sum (at most
+    # 6890 terms) is exact in fp32 in any order of the additions, so the
+    # atomics' order cannot decide the comparison
+    contrib = torch.from_numpy((rng.randint(-2047, 2048, (B, Q, 3))
+                                / 1024.0).astype(np.float32)).to(cuda_device)
+    before = _launches()
+    got = G.gather_rows_cuda(vals, idx)
+    sc = G.scatter_add_rows_cuda(contrib, idx, V)
+    torch.cuda.synchronize()
+    assert _launches()[2:] == (before[2] + 1, before[3] + 1)
+    assert torch.equal(got, G.gather_rows_ref(vals, idx))
+    want = G.scatter_add_rows_ref(contrib, idx, V)
+    assert sc.shape == (B, V, 3)
+    assert ((sc - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_is_one_kernel_and_no_memset_on_card(cuda_device):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.RandomState(4)
+    idx = torch.from_numpy(rng.randint(0, 6890, (64, 6890)).astype(
+        np.int32)).to(cuda_device)
+    contrib = torch.randn(64, 6890, 3, device=cuda_device)
+    G.scatter_add_rows_cuda(contrib, idx, 6890)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        G.scatter_add_rows_cuda(contrib, idx, 6890)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and 'scatter_add_rows' in names[0], names
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs = {}
+_entries = {}   # (name, symbol) -> (library, C function with its argtypes)
 # name -> nvcc output (ptxas: registers, shared memory, spills) of the build
 # this process ran; empty for a library that was already on disk
 BUILD_LOG = {}
@@ -87,26 +88,36 @@ def build(names=None) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.cu, built first if needed. A
+    library already loaded is returned without taking the lock: it enters
+    _libs only once set up."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.tuch_cuda_error_string.argtypes = [ctypes.c_int]
             lib.tuch_cuda_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
         return lib
 
 
 def entry(name: str, symbol: str, argtypes):
     """(library, C function) of csrc/<name>.cu; the function returns a
-    cudaError_t and takes `argtypes` (set once, on first use)."""
+    cudaError_t and takes `argtypes`. Resolved once, then a dict lookup:
+    the wrappers call this on every launch."""
+    hit = _entries.get((name, symbol))
+    if hit is not None:
+        return hit
     lib = load(name)
     fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib, fn
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    hit = _entries[(name, symbol)] = (lib, fn)
+    return hit
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

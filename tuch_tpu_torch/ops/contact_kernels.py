@@ -24,7 +24,7 @@ import torch
 from tuch_tpu_torch.ops import _build
 from tuch_tpu_torch.ops import contact
 
-WINDING_TQ, WINDING_TF = 128, 128   # csrc/winding.cu TQ, TF
+WINDING_TQ, WINDING_TF = 512, 128   # csrc/winding.cu BQ (TQ x QPT), TF
 AFFINE_TQ, AFFINE_TF = 128, 128     # csrc/winding_affine.cu TQ, TF
 MASKED_TN, MASKED_TM = 128, 256     # csrc/masked_min.cu TN, TM
 # Blocks that fill the card: 132 SMs x 8 resident blocks. A kernel whose

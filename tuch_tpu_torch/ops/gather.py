@@ -7,9 +7,12 @@ the gather and its backward the scatter-add, so the gradient of a
 re-gathered nearest vertex reaches both contact endpoints.
 
 Indices are int32, as in the JAX kernels: an index outside [0, V) gathers
-a zero row and scatters nothing. The scatter kernel adds with atomics, so
-on the card its result is not bitwise deterministic (the order of the
-additions into one row varies); it equals index_add_ to fp32 rounding.
+a zero row and scatters nothing. The scatter kernel adds with atomic
+reductions, so on the card its result is not bitwise deterministic (the
+order of the additions into one row varies); it equals index_add_ to fp32
+rounding. The wrappers are on the fit's host path once per body iteration
+each: they resolve their C entry once (_build.entry) and enter a device
+guard only for a tensor off the current device.
 """
 
 import ctypes
@@ -18,7 +21,13 @@ import torch
 
 from tuch_tpu_torch.ops import _build
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
+INDEX_LIMIT = 2 ** 31        # the scatter kernel indexes in 32 bits
+MAX_BATCH = 65535            # its batch is blockIdx.y
+MAX_CLUSTER = 8              # csrc/gather.cu MAX_CLUSTER (portable size)
+SCATTER_BLOCKS = 132         # blocks of 1024 threads: one per SM (H100 SXM)
 
 
 def _flat_rows(idx: torch.Tensor, num_rows: int):
@@ -67,6 +76,36 @@ def _check(values: torch.Tensor, idx: torch.Tensor, what: str):
                          f'{tuple(idx.shape)} on {idx.device}')
 
 
+def check_sizes(B: int, Q: int, V: int, what: str):
+    """Refuse what the scatter kernel's 32-bit index arithmetic and its
+    grid (the batch on blockIdx.y) do not take."""
+    if 3 * B * max(Q, V) >= INDEX_LIMIT or B > MAX_BATCH:
+        raise ValueError(f'{what}: B={B}, Q={Q}, V={V} is too large (needs '
+                         f'3 B Q and 3 B V < 2^31, B <= {MAX_BATCH})')
+
+
+def scatter_plan(B: int, V: int, Q: int):
+    """(C, S, P): kernel 6's C blocks per batch item (one thread-block
+    cluster), the S rows each block zeroes and the P contributions each
+    adds; C S >= V and C P >= Q. As many blocks as fill the SMs once, at
+    most MAX_CLUSTER per item (below B = 17 that caps them: at the body's
+    Q = 6890, C = 8 blocks of 1024 threads give every contribution its own
+    thread already)."""
+    C = max(1, min(MAX_CLUSTER, SCATTER_BLOCKS // B, V))
+    return C, -(-V // C), -(-Q // C)
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """fn(*args, stream) on the current stream of `device`, read as the raw
+    cudaStream_t (as PyTorch's own kernel launchers read it, without
+    building a Stream object); the device guard only where `device` is not
+    the current one."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+
+
 def gather_rows_cuda(values: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
     """Launch kernel 5 on CUDA tensors; counts each launch."""
@@ -76,12 +115,11 @@ def gather_rows_cuda(values: torch.Tensor, idx: torch.Tensor
     out = torch.empty((B, Q, 3), dtype=values.dtype, device=values.device)
     if B * Q == 0:
         return out
-    lib, fn = _build.entry('gather', 'tuch_gather_rows', _ARGS)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), idx.data_ptr(), out.data_ptr(), B, V, Q,
-                 stream)
-    _build.check(lib, err, 'gather kernel launch')
+    lib, fn = _build.entry('gather', 'tuch_gather_rows', _GATHER_ARGS)
+    err = _launch(fn, values.device, values.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), B, V, Q)
+    if err:
+        _build.check(lib, err, 'gather kernel launch')
     gather_rows_cuda.launches += 1
     return out
 
@@ -93,14 +131,15 @@ def scatter_add_rows_cuda(contrib: torch.Tensor, idx: torch.Tensor,
     B, Q, _ = contrib.shape
     if B * Q == 0 or num_rows == 0:
         return contrib.new_zeros((B, num_rows, 3))
+    check_sizes(B, Q, num_rows, 'scatter_add_rows_cuda')
     out = torch.empty((B, num_rows, 3), dtype=contrib.dtype,
-                      device=contrib.device)   # the kernel zeroes it
-    lib, fn = _build.entry('gather', 'tuch_scatter_add_rows', _ARGS)
-    with torch.cuda.device(contrib.device):
-        stream = torch.cuda.current_stream(contrib.device).cuda_stream
-        err = fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
-                 num_rows, Q, stream)
-    _build.check(lib, err, 'scatter kernel launch')
+                      device=contrib.device)   # the kernel writes every row
+    lib, fn = _build.entry('gather', 'tuch_scatter_add_rows', _SCATTER_ARGS)
+    err = _launch(fn, contrib.device, contrib.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), B, num_rows, Q,
+                  *scatter_plan(B, num_rows, Q))
+    if err:
+        _build.check(lib, err, 'scatter kernel launch')
     scatter_add_rows_cuda.launches += 1
     return out
 
