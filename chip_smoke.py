@@ -13,6 +13,10 @@ exit, no result line) if any check fails:
              sides of its tile edges (1 to 300, head dims 32 and 64), and
              its time at B=64 beside the plain version's, a library call's
              and the card's bound (CUDA-graph replays: device time only);
+             attention's gradient through the kernel against the plain
+             version's at the ViT-S/16 B=64 shape in both dtypes, and one
+             ViT-S/16 backward whose qkv weight gradients equal those with
+             the plain version in the kernel's place;
   3. serve   the HTTP server with the ViT-S/16 backbone at full width on the
              synthetic 6890-vertex body: a single /predict and a concurrent
              burst that fills a micro-batch bucket; the attention kernel must
@@ -29,11 +33,13 @@ and the SMPLify-DC slice, on the same body with every contact asset:
 
   7. kernel  winding numbers, the masked nearest vertex, row gather and row
              scatter-add against their plain versions on the card, at the
-             slice's shapes (winding also on the posed B=64 body), and each
-             one's time at B=64 beside its plain version's, its bound and a
-             library call's (gather and scatter-add by CUDA-graph replay,
-             each one device kernel per call, with the host µs per call of
-             their wrappers and library calls at B=64 and 4);
+             slice's shapes (winding and the masked nearest vertex also on
+             the posed B=64 body), and each one's time at B=64 beside its
+             plain version's, its bound and a library call's (the masked
+             nearest vertex also at B=4, with its registers; it, gather and
+             scatter-add by CUDA-graph replay, the latter two each one
+             device kernel per call, with the host µs per call of their
+             wrappers and library calls at B=64 and 4);
   8. fit     the demo (demo_smplify_dc --synthetic, 4 images, 100 iterations,
              ResNet-50 SPIN init): finite outputs, a lower reprojection loss
              than the init's, and each kernel launched exactly its count per
@@ -92,6 +98,15 @@ ODD = dict(N=197, C=384, H=6)       # a ragged last tile of queries and keys
 EDGES = [dict(N=n, C=c, H=2) for n in (1, 15, 16, 17, 64, 196, 197, 300)
          for c in (128, 64)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# attention's gradient through kernel 1 against mha_reference's: the
+# backward is mha_reference's recomputed, so they differ only by the
+# library's rounding (relative to the largest entry); one bf16 step
+GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+# ViT-S/16 qkv weight gradients, kernel 1 against mha_reference in its
+# place: the forward differs by <= 1e-5 per attention and the difference
+# runs through 12 blocks (relative to each tensor's largest entry)
+VIT_GRAD_RTOL = 1e-3
+VIT_GRAD_B = 8
 # card bf16 vs card fp32 vertices, same weights and image: the bar of
 # tests/test_torch_port_bf16.py (BF16_VERTEX_ATOL), metres
 BF16_VERTEX_ATOL = 5e-3
@@ -232,6 +247,75 @@ def phase_kernels(results):
         results[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
                               max_abs_err=worst[dtype])
+    for dtype in (torch.float32, torch.bfloat16):
+        _hold_mha_grad(B, N, C, H, dtype, gen)
+    _hold_vit_grad(gen)
+
+
+def _hold_mha_grad(B, N, C, H, dtype, gen):
+    """fused_mha with a gradient: one kernel 1 launch forward, and the
+    backward against mha_reference's gradient on the same qkv."""
+    from tuch_tpu_torch.ops import attention as A
+    x = torch.randn(B, N, 3 * C, device='cuda', generator=gen).to(dtype)
+    g = torch.randn(B, N, C, device='cuda', generator=gen).to(dtype)
+    qkv = x.clone().requires_grad_(True)
+    before = A.mha_cuda.launches
+    out = A.fused_mha(qkv, H)
+    out.backward(g)
+    ref_x = x.clone().requires_grad_(True)
+    A.mha_reference(ref_x, H).backward(g)
+    torch.cuda.synchronize()
+    launched = A.mha_cuda.launches - before
+    scale = ref_x.grad.float().abs().max().item()
+    err = (qkv.grad.float() - ref_x.grad.float()).abs().max().item()
+    print(f'[kernel] mha gradient {str(dtype)[6:]} B={B} N={N} C={C} H={H}: '
+          f'max abs diff to mha_reference\'s {err:.3g} (bar '
+          f'{GRAD_RTOL[dtype]:.3g} x {scale:.3g}); kernel launches {launched}',
+          flush=True)
+    check(launched == 1 and qkv.grad.dtype == dtype
+          and err <= GRAD_RTOL[dtype] * scale,
+          f'mha gradient {dtype}: err {err}, launches {launched}')
+
+
+def _hold_vit_grad(gen):
+    """One ViT-S/16 backward at 224 through kernel 1 (12 launches), its
+    qkv weight gradients against the same backward with mha_reference in
+    the kernel's place."""
+    from tuch_tpu_torch import assets
+    from tuch_tpu_torch.models import hmr as hmr_mod
+    from tuch_tpu_torch.models import vit as vit_mod
+    from tuch_tpu_torch.ops import attention as A
+    _, means = assets.synthetic_smpl(num_verts=170)
+    hmr = hmr_mod.init_weights(hmr_mod.create_hmr(*means,
+                                                  backbone='vit_s16'))
+    vit = hmr.backbone.to('cuda').train()
+    x = torch.randn(VIT_GRAD_B, 224, 224, 3, device='cuda', generator=gen)
+    w = torch.randn(VIT_GRAD_B, vit.width, device='cuda', generator=gen)
+
+    def qkv_grads():
+        vit.zero_grad()
+        (vit(x) * w).sum().backward()
+        return [b.attn.qkv.weight.grad.clone() for b in vit.blocks]
+
+    before = A.mha_cuda.launches
+    got = qkv_grads()
+    launched = A.mha_cuda.launches - before
+    try:
+        vit_mod.fused_mha = A.mha_reference
+        want = qkv_grads()
+    finally:
+        vit_mod.fused_mha = A.fused_mha
+    torch.cuda.synchronize()
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(got, want))
+    print(f'[kernel] ViT-S/16 backward B={VIT_GRAD_B} at 224: kernel 1 '
+          f'launches {launched} (expected {VIT_S16_DEPTH}); qkv weight '
+          f'gradients of {len(got)} blocks against mha_reference in its '
+          f'place: worst max abs diff / max abs {rel:.3g} (bar '
+          f'{VIT_GRAD_RTOL})', flush=True)
+    check(launched == VIT_S16_DEPTH and rel <= VIT_GRAD_RTOL
+          and all(bool(torch.isfinite(t).all()) for t in got),
+          f'ViT backward: launches {launched}, rel {rel}')
 
 
 def _png_b64(seed, size=(240, 320)):
@@ -484,11 +568,12 @@ def _hold_winding(label, pts, tris):
     return err
 
 
-def _hold_masked_min(label, verts, mask):
+def _hold_masked_min(label, verts, mask, bits):
     from tuch_tpu_torch.ops import contact as PC
     from tuch_tpu_torch.ops import contact_kernels as CK
-    d2, arg = CK.masked_min_dist_cuda(verts, mask)
-    want_d2, want_arg = PC.masked_min_dist(verts, mask)
+    d2, arg = CK.masked_min_dist_cuda(verts, mask, bits)
+    parts = _chunked(lambda v: PC.masked_min_dist(v, mask), verts)
+    want_d2, want_arg = (torch.cat(t) for t in zip(*parts))
     torch.cuda.synchronize()
     fin = torch.isfinite(want_d2)
     check(torch.equal(fin, torch.isfinite(d2)), f'{label}: inf rows differ')
@@ -530,7 +615,7 @@ def phase_slice_kernels(runtime, results):
     from tuch_tpu_torch.ops import gather as G
     from tuch_tpu_torch.ops.segments import fused_problem
     smpl, contact = runtime.smpl, runtime.contact
-    faces, mask = contact.faces, contact.geomask
+    faces, mask, bits = contact.faces, contact.geomask, contact.geomask_bits
     V = smpl.v_template.shape[0]
     err = dict(winding=0.0, masked_min=0.0, gather=0.0, scatter_add=0.0)
     for B in (1, 8):
@@ -542,7 +627,7 @@ def phase_slice_kernels(runtime, results):
             err['winding'] = max(err['winding'], _hold_winding(
                 f'{name} B={B} segments',
                 *fused_problem(contact.segment_tables, verts)))
-            e, arg = _hold_masked_min(f'{name} B={B}', verts, mask)
+            e, arg = _hold_masked_min(f'{name} B={B}', verts, mask, bits)
             err['masked_min'] = max(err['masked_min'], e)
         idx = arg.clone()
         idx[0, :5] = -1
@@ -573,34 +658,74 @@ def phase_slice_kernels(runtime, results):
     B = TRAIN_B
     verts = posed_verts(smpl, B, 0.3, 99)
     tris = verts[:, faces]
-    allowed = int(mask.sum().item())
-    _, idx = CK.masked_min_dist_cuda(verts, mask)
+    e, idx = _hold_masked_min(f'posed B={B}', verts, mask, bits)
+    err['masked_min'] = max(err['masked_min'], e)
     err['winding'] = max(err['winding'], _hold_winding(
         f'posed B={B} self', verts, tris))
-    plans = {
-        'winding': (lambda: CK.winding_numbers_tris_cuda(verts, tris),
-                    lambda: _chunked(PC.winding_numbers, verts, tris),
-                    bound(WINDING_OPS_PER_PAIR * B * V * tris.shape[1],
-                          4 * B * (3 * V + 9 * tris.shape[1] + V))),
-        'masked_min': (lambda: CK.masked_min_dist_cuda(verts, mask),
-                       lambda: _chunked(
-                           lambda v: PC.masked_min_dist(v, mask), verts),
-                       bound(B * (V * V + MASKED_OPS_ALLOWED * allowed),
-                             V * V + 12 * B * V + 8 * B * V)),
-    }
-    for name, (kern, plain, (bound_ms, bound_by)) in plans.items():
-        ms = cuda_ms(kern, iters=5, warmup=1)
-        plain_ms = cuda_ms(plain, iters=2, warmup=1)
-        print(f'[kernel] {name} B={B} V={V}: kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms ({B // PLAIN_CHUNK} x B={PLAIN_CHUNK}), '
-              f'no one-call library equivalent, bound {bound_ms:.4f} ms '
-              f'({bound_by}), {bound_ms / ms:.1%} of bound', flush=True)
-        results[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=err[name])
+    ms = cuda_ms(lambda: CK.winding_numbers_tris_cuda(verts, tris), iters=5,
+                 warmup=1)
+    plain_ms = cuda_ms(lambda: _chunked(PC.winding_numbers, verts, tris),
+                       iters=2, warmup=1)
+    bound_ms, bound_by = bound(WINDING_OPS_PER_PAIR * B * V * tris.shape[1],
+                               4 * B * (3 * V + 9 * tris.shape[1] + V))
+    print(f'[kernel] winding B={B} V={V}: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms ({B // PLAIN_CHUNK} x B={PLAIN_CHUNK}), '
+          f'no one-call library equivalent, bound {bound_ms:.4f} ms '
+          f'({bound_by}), {bound_ms / ms:.1%} of bound', flush=True)
+    results['winding'] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              max_abs_err=err['winding'])
+    for b in (FIT_IMAGES, TRAIN_B):
+        _time_masked_min(verts[:b].contiguous(), mask, bits, results, err)
     _time_rows(verts, idx, results, err)
     del verts, tris
     torch.cuda.empty_cache()
+
+
+def ptxas_line(source, kernel):
+    """The registers and spills ptxas reported for `kernel` when this
+    process built csrc/<source>.cu ('not built here' otherwise)."""
+    from tuch_tpu_torch.ops import _build
+    lines = _build.BUILD_LOG.get(source, '').splitlines()
+    at = next((i for i, ln in enumerate(lines)
+               if 'Compiling entry function' in ln and kernel in ln), None)
+    if at is None:
+        return 'not built here'
+    tail = lines[at + 1:at + 5]
+    spill = next((ln.strip() for ln in tail if 'spill' in ln), '')
+    regs = next((ln.split(':', 1)[1].strip() for ln in tail
+                 if 'registers' in ln), '')
+    return f'{regs}; {spill}'
+
+
+def _time_masked_min(verts, mask, bits, results, err):
+    """Kernel 4 on the main path's form (the stored bits) by CUDA-graph
+    replay beside its plain version and its bound; the training batch's
+    row goes into results."""
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    B, V, _ = verts.shape
+    allowed = int(mask.sum().item())
+    ms = graph_ms(lambda: CK.masked_min_dist_cuda(verts, mask, bits),
+                  iters=10)
+    plain_ms = cuda_ms(lambda: _chunked(
+        lambda v: PC.masked_min_dist(v, mask), verts), iters=2, warmup=1)
+    bound_ms, bound_by = bound(B * (V * V + MASKED_OPS_ALLOWED * allowed),
+                               V * V + 12 * B * V + 8 * B * V)
+    T, R, G, TM = CK.masked_min_shape()
+    chunk, splits = CK.masked_min_plan(B, V, (T, R, G, TM))
+    print(f'[kernel] masked_min B={B} V={V}: kernel {ms:.4f} ms (CUDA-graph '
+          f'replay, device time), plain {plain_ms:.4f} ms '
+          f'({-(-B // PLAIN_CHUNK)} x B={min(B, PLAIN_CHUNK)}), no one-call '
+          f'library equivalent, bound {bound_ms:.4f} ms ({bound_by}), '
+          f'{bound_ms / ms:.1%} of bound; {G} bodies and {T * R} queries '
+          f'per block, {splits} splits of {chunk}; ptxas '
+          f'{ptxas_line("masked_min", "masked_min_kernel")}', flush=True)
+    if B == TRAIN_B:
+        results['masked_min'] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=None, bound_ms=bound_ms,
+                                     bound_by=bound_by,
+                                     max_abs_err=err['masked_min'])
 
 
 def host_us(fn, calls=1000):
@@ -917,7 +1042,7 @@ def phase_fit_parity(runtime):
     ext_g, arg_g = PL.contact_neighbors(verts, gpu[2])
     ext_c, arg_c = PL.contact_neighbors(vc, cpu[2])
     flips = ((ext_g.cpu() != ext_c) & ~band).sum().item()
-    d2_g, _ = CK.masked_min_dist(verts, gpu[2].geomask)
+    d2_g, _ = CK.masked_min_dist(verts, gpu[2].geomask, gpu[2].geomask_bits)
     d2_c, _ = CK.masked_min_dist(vc, cpu[2].geomask)
     fin = torch.isfinite(d2_c)
     d2_ok = ((d2_g.cpu() - d2_c).abs()[fin] <= D2_RTOL * d2_c[fin]).all()

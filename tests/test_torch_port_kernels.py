@@ -293,6 +293,58 @@ def test_winding_atan2_polynomial_keeps_ieee_signs_and_zeros():
     assert err.max() <= 4e-7
 
 
+def _unpack_bits(words, V):
+    """pack_mask_bits inverted: (Q, W) int32 -> (Q, 32 W) bool, all bits."""
+    byts = words.contiguous().view(torch.uint8)           # (Q, 4 W)
+    shifts = torch.arange(8, dtype=torch.uint8)
+    return ((byts[..., None] >> shifts) & 1).reshape(words.shape[0], -1) \
+        .bool()
+
+
+@pytest.mark.parametrize('V', [1, 31, 33, 170, 6890])
+def test_mask_bits_round_trip_and_ban_the_padding(V):
+    rng = np.random.RandomState(V)
+    allowed = rng.rand(V, V) > 0.4
+    stored = torch.from_numpy(allowed.astype(np.uint8))   # the assets'
+    words = CK.pack_mask_bits(stored)
+    W = -(-V // 32)
+    assert words.dtype == torch.int32 and words.shape == (V, W)
+    assert words.is_contiguous()
+    bits = _unpack_bits(words, V)
+    assert torch.equal(bits[:, :V], torch.from_numpy(allowed))
+    assert not bits[:, V:].any()                  # padding bits: banned
+    # a bool mask and a transposed view pack to the same words
+    assert torch.equal(CK.pack_mask_bits(torch.from_numpy(allowed)), words)
+    transposed = torch.from_numpy(np.ascontiguousarray(
+        allowed.T.astype(np.uint8))).t()
+    assert torch.equal(CK.pack_mask_bits(transposed), words)
+
+
+def test_contact_assets_carry_the_packed_mask():
+    from tuch_tpu_torch.models.convert import contact_assets_from_numpy
+    rng = np.random.RandomState(9)
+    V = 70
+    geo = rng.rand(V, V) > 0.5
+    z = np.zeros((1, 2), np.int64)
+    ca = contact_assets_from_numpy({
+        'geomask': geo, 'faces': np.zeros((3, 3), np.int64),
+        'region_idx_a': z, 'region_idx_b': z, 'region_mask_a': z > 0,
+        'region_mask_b': z > 0})
+    assert torch.equal(ca.geomask_bits, CK.pack_mask_bits(ca.geomask))
+    assert torch.equal(_unpack_bits(ca.geomask_bits, V)[:, :V],
+                       torch.from_numpy(geo))
+    moved = ca.to('cpu')
+    assert torch.equal(moved.geomask_bits, ca.geomask_bits)
+    assert moved.geomask.dtype == torch.uint8
+    # on the CPU the dispatcher reads the mask (plain version), no launch
+    verts, _ = _body(B=2, V=V)
+    before = _launches()
+    d2, arg = CK.masked_min_dist(verts, ca.geomask, ca.geomask_bits)
+    want_d2, want_arg = PC.masked_min_dist(verts, ca.geomask.bool())
+    assert torch.equal(d2, want_d2) and torch.equal(arg, want_arg)
+    assert _launches() == before
+
+
 def test_plain_gather_and_scatter_handle_out_of_range_indices():
     vals = torch.arange(2 * 4 * 3, dtype=torch.float32).reshape(2, 4, 3)
     idx = torch.tensor([[0, -1, 3, 4], [2, 2, 1, -5]], dtype=torch.int32)
@@ -326,6 +378,37 @@ def test_mha_kernel_matches_plain_version_on_card(cuda_device, shape, dtype,
     want = A.mha_reference(x, heads)
     assert got.dtype == dtype and got.shape == (B, N, C)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('shape', [(2, 196, 384, 6), (3, 17, 64, 2)])
+def test_mha_gradient_through_the_kernel_on_card(cuda_device, shape, dtype,
+                                                 tol):
+    """fused_mha with a gradient: kernel 1 forward (one launch), the
+    backward mha_reference's gradient recomputed on the saved qkv, so equal
+    to it up to the library's own rounding (rtol 1e-5 fp32, one bf16 step
+    in bf16)."""
+    B, N, C, heads = shape
+    x = _qkv(B, N, C, dtype, cuda_device).requires_grad_(True)
+    g = torch.from_numpy(np.random.RandomState(1).randn(B, N, C).astype(
+        np.float32)).to(cuda_device, dtype)
+    before = A.mha_cuda.launches
+    out = A.fused_mha(x, heads)
+    assert A.mha_cuda.launches == before + 1 and out.grad_fn is not None
+    out.backward(g)
+    ref_x = x.detach().clone().requires_grad_(True)
+    ref = A.mha_reference(ref_x, heads)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    assert A.mha_cuda.launches == before + 1      # no kernel in the backward
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    scale = ref_x.grad.float().abs().max().item()
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    assert x.grad.dtype == dtype
+    assert (x.grad.float() - ref_x.grad.float()).abs().max().item() \
+        <= rtol * scale
 
 
 @pytest.mark.cuda
@@ -378,7 +461,7 @@ def test_masked_min_kernel_matches_plain_version_on_card(cuda_device, B, V):
     allowed[5] = False
     mask_t = torch.from_numpy(np.ascontiguousarray(
         allowed.T.astype(np.uint8))).to(cuda_device)
-    mask = mask_t.t()                   # the stored layout: no copy
+    mask = mask_t.t()                   # a transposed view
     before = CK.masked_min_dist_cuda.launches
     d2, arg = CK.masked_min_dist(verts, mask)
     torch.cuda.synchronize()
@@ -395,9 +478,72 @@ def test_masked_min_kernel_matches_plain_version_on_card(cuda_device, B, V):
     ref = full.gather(2, want_arg.long()[..., None])[..., 0]
     differ = (arg != want_arg) & fin
     assert ((pick - ref).abs()[differ] <= 1e-6 * ref[differ]).all()
-    # a contiguous mask is transposed inside the wrapper: same answer
+    # a contiguous mask packs to the same bits: same answer
     d2c, argc = CK.masked_min_dist(verts, mask.contiguous())
     assert torch.equal(d2c, d2) and torch.equal(argc, arg)
+
+
+def _hold_masked_min(verts, mask, d2, arg):
+    """Kernel 4's bars against the plain version (chip_smoke.py phase 7):
+    d2 at rtol 1e-6, another argmin only at a tie of the plain d2 within
+    1e-6 relative, every pick allowed, inf and 0 where all are banned."""
+    want_d2, want_arg = PC.masked_min_dist(verts, mask.bool())
+    assert d2.shape == arg.shape == want_d2.shape and arg.dtype == torch.int32
+    fin = torch.isfinite(want_d2)
+    assert torch.equal(fin, torch.isfinite(d2))
+    assert (d2[~fin] == float('inf')).all() and (arg[~fin] == 0).all()
+    assert ((d2 - want_d2).abs()[fin] <= 1e-6 * want_d2[fin]).all()
+    diff = verts - torch.gather(verts, 1,
+                                arg.long()[..., None].expand(-1, -1, 3))
+    pick = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+        + diff[..., 2] * diff[..., 2]
+    differ = (arg != want_arg) & fin
+    assert ((pick - want_d2).abs()[differ] <= 1e-6 * want_d2[differ]).all()
+    rows = torch.arange(verts.shape[1], device=verts.device)
+    assert (mask[rows[None].expand_as(arg), arg.long()] > 0)[fin].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['asymmetric_with_a_banned_row',
+                                  'all_allowed'])
+@pytest.mark.parametrize('V', [31, 33, 170, 6890])
+@pytest.mark.parametrize('B', [1, 3, 8])
+def test_masked_min_bits_kernel_matches_plain_version_on_card(
+        cuda_device, B, V, kind):
+    """B not a multiple of the bodies per block, V around a mask word and
+    at the body's size; the mask as stored bits and packed by the call:
+    the same answer, one launch each."""
+    verts, _ = _body(B=B, V=V, F=3, seed=B * 7 + V, device=cuda_device)
+    rng = np.random.RandomState(V)
+    allowed = np.ones((V, V), bool)
+    if kind != 'all_allowed':
+        allowed = rng.rand(V, V) > 0.3
+        allowed[V // 2] = False
+        assert (allowed != allowed.T).any()
+    mask = torch.from_numpy(allowed.astype(np.uint8)).to(cuda_device)
+    bits = CK.pack_mask_bits(mask)
+    before = CK.masked_min_dist_cuda.launches
+    d2, arg = CK.masked_min_dist(verts, mask, bits)
+    torch.cuda.synchronize()
+    assert CK.masked_min_dist_cuda.launches == before + 1
+    _hold_masked_min(verts, mask, d2, arg)
+    if kind != 'all_allowed':
+        assert (d2[:, V // 2] == float('inf')).all()
+    d2p, argp = CK.masked_min_dist_cuda(verts, mask)     # packs first
+    torch.cuda.synchronize()
+    assert CK.masked_min_dist_cuda.launches == before + 2
+    assert torch.equal(d2p, d2) and torch.equal(argp, arg)
+
+
+@pytest.mark.cuda
+def test_masked_min_wrapper_refuses_a_bad_packing_on_card(cuda_device):
+    verts, _ = _body(B=2, V=70, F=3, device=cuda_device)
+    mask = torch.ones((70, 70), dtype=torch.uint8, device=cuda_device)
+    bits = CK.pack_mask_bits(mask)
+    for bad in (bits.long(), bits[:, :2], bits.t().contiguous()[:70, :3],
+                bits.cpu(), torch.cat([bits, bits], 1)[:, ::2]):
+        with pytest.raises(ValueError, match='bits'):
+            CK.masked_min_dist_cuda(verts, mask, bad)
 
 
 @pytest.mark.cuda

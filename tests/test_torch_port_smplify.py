@@ -371,7 +371,7 @@ def test_runtime_contact_state_matches_jax_runtime():
     got = prt.build_runtime(device='cpu', synthetic=True, num_verts=170,
                             with_contact=True)
     wc, gc = want.assets.contact, got.contact
-    assert gc.geomask.dtype == torch.uint8 and gc.geomask.t().is_contiguous()
+    assert gc.geomask.dtype == torch.uint8 and gc.geomask.is_contiguous()
     np.testing.assert_array_equal(gc.geomask.numpy().astype(bool),
                                   np.asarray(wc.geomask))
     for name in ('faces', 'region_idx_a', 'region_idx_b', 'region_mask_a',

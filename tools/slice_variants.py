@@ -121,11 +121,14 @@ def start(workdir: Path, source: Path, variants: dict, flags=None):
     return procs
 
 
-def finish(name: str, procs: dict, symbol: str, argtypes):
-    """{variant: C function} of the builds that `start` began."""
+def finish(name: str, procs: dict, symbol: str, argtypes, logs=None):
+    """{variant: C function} of the builds that `start` began; with a dict
+    `logs`, each build's nvcc output (ptxas lines) goes into it."""
     fns = {}
     for variant, (lib, proc) in procs.items():
         log, _ = proc.communicate()
+        if logs is not None:
+            logs[variant] = log
         if proc.returncode:     # reported, and the other variants still run
             print(f'[{name}] {variant}: nvcc failed:\n{log[-2000:]}',
                   flush=True)

@@ -40,6 +40,7 @@ JOINT_REGRESSOR_TRAIN_EXTRA = os.path.join(
 PRIOR_FOLDER = os.path.join(DATA_DIR, 'essentials/spin')
 GEODESICS_SMPL = os.path.join(
     DATA_DIR, 'essentials/geodesics/smpl/smpl_neutral_geodesic_dist.npy')
+SEGMENT_DIR = os.path.join(DATA_DIR, 'essentials/segments/smpl')
 DSC_ROOT = os.path.join(DS_DIR, 'dsc/release')
 
 # Contact thresholds: vertex pairs geodesically closer than geothres are

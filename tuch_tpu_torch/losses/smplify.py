@@ -88,9 +88,9 @@ class ContactAssets(NamedTuple):
     """Static data of the contact terms, on the device.
 
     geomask is the (V, V) uint8 mask of geodesically distant (allowed)
-    pairs, allowed[query, searched], stored so that geomask.t() is
-    contiguous: the masked-min kernel reads it transposed without a copy
-    (models/convert.py contact_assets_from_numpy builds it so).
+    pairs, allowed[query, searched]; geomask_bits is the same mask packed
+    for the masked-min kernel, ops/contact_kernels.pack_mask_bits
+    (models/convert.py contact_assets_from_numpy builds both).
     """
     geomask: torch.Tensor        # (V, V) uint8
     faces: torch.Tensor          # (F, 3) int64
@@ -99,14 +99,16 @@ class ContactAssets(NamedTuple):
     region_mask_a: torch.Tensor  # (P, R) bool
     region_mask_b: torch.Tensor  # (P, R) bool
     segment_tables: Optional[SegmentTables] = None
+    geomask_bits: Optional[torch.Tensor] = None   # (V, ceil(V / 32)) int32
 
     def to(self, device) -> 'ContactAssets':
-        """A copy on `device` (the mask keeps its transposed layout)."""
-        tables = self.segment_tables
+        """A copy on `device`."""
+        tables, bits = self.segment_tables, self.geomask_bits
         return ContactAssets(
             *(t.to(device) for t in self[:6]),
             segment_tables=None if tables is None else to_device(tables,
-                                                                 device))
+                                                                 device),
+            geomask_bits=None if bits is None else bits.to(device))
 
 
 def _candidate_flags(shape, prev_exterior, cand, wn_c):
@@ -152,7 +154,8 @@ def contact_neighbors(verts: torch.Tensor, assets: ContactAssets,
     vd = verts.detach()
     B, V, _ = vd.shape
     K = max(0, int(candidate_k))
-    min_d2, argmin = CK.masked_min_dist(vd, assets.geomask)
+    min_d2, argmin = CK.masked_min_dist(vd, assets.geomask,
+                                        assets.geomask_bits)
     if K and K < V:
         cand = _top_k(_candidate_key(min_d2, prev_exterior), K)   # (B, K)
         qpts = gather_rows(vd, cand.int())

@@ -90,11 +90,12 @@ def contact_assets_from_numpy(fields: Mapping, segment_tables=None,
     fields: geomask (V, V) bool or uint8, allowed[query, searched]; faces
     (F, 3); region_idx_a/b and region_mask_a/b (P, R). segment_tables: a
     SegmentTables (or a mapping of its fields) with numpy arrays, or None.
-    The mask is stored as uint8 whose transpose is contiguous: the layout
-    the masked-min kernel reads.
+    The mask is stored as uint8, and packed once as the bits the masked-min
+    kernel reads (geomask_bits).
     """
     from tuch_tpu_torch.losses.smplify import ContactAssets
     from tuch_tpu_torch.ops import segments as seg_mod
+    from tuch_tpu_torch.ops.contact_kernels import pack_mask_bits
 
     def idx(x):
         return torch.tensor(np.asarray(x), dtype=torch.long, device=device)
@@ -102,21 +103,21 @@ def contact_assets_from_numpy(fields: Mapping, segment_tables=None,
     def mask(x):
         return torch.tensor(np.asarray(x, bool), device=device)
 
-    geomask_t = np.ascontiguousarray(np.asarray(fields['geomask'],
-                                                np.uint8).T)
     tables = None
     if segment_tables is not None:
         if isinstance(segment_tables, Mapping):
             segment_tables = seg_mod.SegmentTables(**segment_tables)
         tables = seg_mod.to_device(segment_tables, device)
+    geomask = torch.tensor(np.asarray(fields['geomask'], np.uint8),
+                           device=device)
     return ContactAssets(
-        geomask=torch.as_tensor(geomask_t, device=device).t(),
+        geomask=geomask,
         faces=idx(fields['faces']),
         region_idx_a=idx(fields['region_idx_a']),
         region_idx_b=idx(fields['region_idx_b']),
         region_mask_a=mask(fields['region_mask_a']),
         region_mask_b=mask(fields['region_mask_b']),
-        segment_tables=tables)
+        segment_tables=tables, geomask_bits=pack_mask_bits(geomask))
 
 
 def prior_from_numpy(means, precisions, nll_weights, device='cpu'):

@@ -80,9 +80,40 @@ def mha_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 mha_cuda.launches = 0
 
 
-def fused_mha(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Attention by device: the plain version for a CPU tensor, the CUDA
-    kernel for a CUDA tensor (which raises rather than fall back)."""
+def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """The plain version for a CPU tensor, the CUDA kernel for a CUDA
+    tensor (which raises rather than fall back)."""
     if qkv.device.type == 'cpu':
         return mha_reference(qkv, heads)
     return mha_cuda(qkv, heads)
+
+
+class _FusedMHA(torch.autograd.Function):
+    """Counterpart of attention_pallas.fused_mha's custom_vjp: the forward
+    by device (kernel 1 on the card), the backward the gradient of
+    mha_reference recomputed on the saved qkv, as _fused_mha_bwd does.
+    There is no backward kernel: the JAX package has none."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(qkv)
+        with torch.no_grad():
+            return _forward(qkv, heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_(True)
+            gx, = torch.autograd.grad(mha_reference(x, ctx.heads), x, grad)
+        return gx, None
+
+
+def fused_mha(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    """Attention by device, differentiable on both: through _FusedMHA when
+    a gradient is wanted, else straight to the plain version or the
+    kernel (serving builds no graph)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _FusedMHA.apply(qkv, heads)
+    return _forward(qkv, heads)

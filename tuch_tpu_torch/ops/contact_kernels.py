@@ -26,17 +26,16 @@ from tuch_tpu_torch.ops import contact
 
 WINDING_TQ, WINDING_TF = 512, 128   # csrc/winding.cu BQ (TQ x QPT), TF
 AFFINE_TQ, AFFINE_TF = 128, 128     # csrc/winding_affine.cu TQ, TF
-MASKED_TN, MASKED_TM = 128, 256     # csrc/masked_min.cu TN, TM
 # Blocks that fill the card: 132 SMs x 8 resident blocks. A kernel whose
 # query blocks fall short splits its reduction axis over the grid.
 TARGET_BLOCKS = 132 * 8
 
 
-def _split(base_blocks: int, n: int, tile: int):
+def _split(base_blocks: int, n: int, tile: int, target=TARGET_BLOCKS):
     """(chunk, splits) of an axis of n items, chunk a multiple of tile, so
-    that base_blocks * splits approaches TARGET_BLOCKS."""
+    that base_blocks * splits approaches target."""
     tiles = -(-n // tile)
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // base_blocks)))
+    want = max(1, min(tiles, -(-target // base_blocks)))
     chunk = -(-tiles // want) * tile
     return chunk, -(-n // chunk)
 
@@ -90,13 +89,47 @@ def winding_numbers_tris_cuda(points: torch.Tensor, tris: torch.Tensor
     return out
 
 
-def masked_min_dist_cuda(verts: torch.Tensor, mask: torch.Tensor):
+def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
+    """Kernel 4's mask: (Q, V) allowed[query, searched], bool or uint8 in
+    any layout -> (Q, ceil(V / 32)) int32 words on the same device; bit b
+    of word w of row q is allowed[q, 32 w + b], and the bits past V are 0
+    (banned). The main path packs once, with the contact assets
+    (models/convert.py)."""
+    Q, V = mask.shape
+    W = -(-V // 32)
+    padded = torch.zeros((Q, 32 * W), dtype=torch.uint8, device=mask.device)
+    padded[:, :V] = mask != 0
+    weights = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8,
+                           device=mask.device)
+    packed = (padded.view(Q, 4 * W, 8) * weights).sum(-1, dtype=torch.uint8)
+    return packed.view(torch.int32)       # little-endian: byte k, bits 8k+
+
+
+def masked_min_shape():
+    """(threads, queries per thread, bodies per block, searched vertices
+    per tile) of the built csrc/masked_min.cu."""
+    lib, fn = _build.entry('masked_min', 'tuch_masked_min_shape',
+                           [ctypes.c_void_p])
+    out = (ctypes.c_int * 4)()
+    fn(out)
+    return tuple(out)
+
+
+def masked_min_plan(B: int, V: int, shape):
+    """(chunk, splits) of kernel 4's searched axis for B bodies of V
+    vertices, given masked_min_shape()."""
+    T, R, G, TM = shape
+    return _split(-(-B // G) * -(-V // (T * R)), V, TM)
+
+
+def masked_min_dist_cuda(verts: torch.Tensor, mask: torch.Tensor,
+                         bits: torch.Tensor = None):
     """Launch kernel 4: verts (B, V, 3), mask (V, V) uint8 allowed[query,
     searched] -> (min d2 (B, V) float32, argmin (B, V) int32).
 
-    The kernel reads the mask through its transpose: mask.t() must be
-    contiguous (ContactAssets stores it so). A contiguous mask is
-    transposed here, one (V, V) copy per call.
+    The kernel reads the mask as bits, pack_mask_bits(mask): pass them as
+    `bits` (ContactAssets.geomask_bits); without them this call packs
+    first.
     """
     what = 'masked_min_dist_cuda'
     _check_points(verts, 3, what, 'verts')
@@ -106,20 +139,30 @@ def masked_min_dist_cuda(verts: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f'{what}: mask must be uint8 ({V}, {V}) on '
                          f'{verts.device}, got {mask.dtype} '
                          f'{tuple(mask.shape)} on {mask.device}')
-    mask_t = mask.t().contiguous()      # a no-op for the stored layout
+    W = -(-V // 32)
+    if bits is None:
+        bits = pack_mask_bits(mask)
+    elif bits.dtype != torch.int32 or tuple(bits.shape) != (V, W) \
+            or not bits.is_contiguous() or bits.device != verts.device:
+        raise ValueError(f'{what}: bits must be contiguous int32 ({V}, {W}) '
+                         f'on {verts.device} (pack_mask_bits), got '
+                         f'{bits.dtype} {tuple(bits.shape)} on {bits.device}')
     d2 = torch.empty((B, V), dtype=torch.float32, device=verts.device)
     idx = torch.empty((B, V), dtype=torch.int32, device=verts.device)
     if B * V == 0:
         return d2, idx
-    chunk, splits = _split(B * -(-V // MASKED_TN), V, MASKED_TM)
+    shape = masked_min_shape()
+    if -(-B // shape[2]) > 65535:
+        raise ValueError(f'{what}: B={B} is too large for the grid')
+    chunk, splits = masked_min_plan(B, V, shape)
     keys = torch.empty((B, splits, V), dtype=torch.int64,
                        device=verts.device)
     lib, fn = _build.entry(
         'masked_min', 'tuch_masked_min',
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(verts.device):
-        err = fn(verts.data_ptr(), mask_t.data_ptr(), keys.data_ptr(),
-                 d2.data_ptr(), idx.data_ptr(), B, V, chunk,
+        err = fn(verts.data_ptr(), bits.data_ptr(), keys.data_ptr(),
+                 d2.data_ptr(), idx.data_ptr(), B, V, W, chunk,
                  _stream(verts))
     _build.check(lib, err, 'masked-min kernel launch')
     masked_min_dist_cuda.launches += 1
@@ -192,12 +235,14 @@ def winding_numbers_faces(points: torch.Tensor, verts: torch.Tensor,
     return winding_numbers_tris_cuda(points, verts[:, faces.long()])
 
 
-def masked_min_dist(verts: torch.Tensor, mask: torch.Tensor):
+def masked_min_dist(verts: torch.Tensor, mask: torch.Tensor,
+                    bits: torch.Tensor = None):
     """Masked nearest vertex: (min d2 (B, V), argmin (B, V) int32); inf
-    and 0 where every pair is banned."""
+    and 0 where every pair is banned. bits: pack_mask_bits(mask), which the
+    kernel reads (the plain version reads the mask)."""
     if verts.device.type == 'cpu':
         return contact.masked_min_dist(verts, mask)
-    return masked_min_dist_cuda(verts, mask)
+    return masked_min_dist_cuda(verts, mask, bits)
 
 
 # ---------------------------------------------------------------------------

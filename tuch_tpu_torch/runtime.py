@@ -103,7 +103,7 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
                 smpl_model, cfg.JOINT_REGRESSOR_TRAIN_EXTRA)
         means = assets_mod.load_mean_params(cfg.SMPL_MEAN_PARAMS)
         if with_contact:
-            extras = _load_real_contact()
+            extras = _load_real_contact(with_segments)
             gmm = assets_mod.load_gmm_prior(os.path.join(
                 cfg.PRIOR_FOLDER, 'gmm_08.pkl'))
 
@@ -132,13 +132,88 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
         contact_classes=tuple(extras.contact_classes))
 
 
-def _load_real_contact() -> assets_mod.ContactExtras:
-    """Geodesic distances and the region tables of the real assets (the
-    reference's body segments are not read: segments stay off)."""
+def _load_real_contact(with_segments: bool) -> assets_mod.ContactExtras:
+    """Geodesic distances and the region tables of the real assets, and
+    with_segments the body segments when their files are on disk (else
+    segments stay off, as in the JAX package, and a line says so)."""
     with open(os.path.join(cfg.DSC_ROOT, 'classes.pkl'), 'rb') as f:
         classes = pickle.load(f)
     with open(os.path.join(cfg.DSC_ROOT, 'ContactSigSMPL.pkl'), 'rb') as f:
         csig = pickle.load(f)
+    segments = _load_real_segments() if with_segments else None
+    if with_segments and not segments:
+        print(f'[tuch_tpu_torch.runtime] body segments off '
+              f'({os.path.join(cfg.SEGMENT_DIR, "segm_utils.py")} or its '
+              f'smpl_segment_*.ply missing)', flush=True)
     return assets_mod.ContactExtras(
-        geodists=np.load(cfg.GEODESICS_SMPL), segments={},
+        geodists=np.load(cfg.GEODESICS_SMPL), segments=segments or {},
         contact_classes=list(classes), contact_csig=csig)
+
+
+def _load_real_segments():
+    """The real body segments, {name: {'vidx', 'bands_verts'}}, or None
+    when segm_utils.py or every segment's PLY is missing.
+
+    Copy of tuch_tpu/runtime.py _load_real_segments: the reference reads
+    smpl_segment_{name}.ply vertex colours and the segm_utils.py table
+    (tuch/utils/segmentation.py:40-47).
+    """
+    seg_dir = cfg.SEGMENT_DIR
+    utils_py = os.path.join(seg_dir, 'segm_utils.py')
+    if not os.path.isfile(utils_py):
+        return None
+    namespace = {}
+    with open(utils_py) as f:
+        exec(f.read(), namespace)  # trusted local asset, as the reference
+    out = {}
+    for name, bands in namespace.get('segments', {}).items():
+        ply = os.path.join(seg_dir, f'smpl_segment_{name}.ply')
+        if not os.path.isfile(ply):
+            continue
+        out[name] = {'vidx': _red_vertices_from_ply(ply),
+                     'bands_verts': [np.asarray(v) for v in bands.values()]}
+    return out or None
+
+
+_PLY_TYPES = {'float': 'f4', 'float32': 'f4', 'double': 'f8', 'uchar': 'u1',
+              'uint8': 'u1', 'int': 'i4', 'uint': 'u4', 'short': 'i2',
+              'ushort': 'u2', 'char': 'i1'}
+
+
+def _red_vertices_from_ply(path: str) -> np.ndarray:
+    """Vertex ids whose red channel is 255 in an ascii or binary PLY (copy
+    of tuch_tpu/runtime.py's minimal reader, which replaces trimesh at the
+    reference's segmentation.py:41-42)."""
+    with open(path, 'rb') as f:
+        header = []
+        while True:
+            line = f.readline().decode('ascii', errors='replace').strip()
+            header.append(line)
+            if line == 'end_header':
+                break
+        n_verts, props, fmt, in_vertex = 0, [], 'ascii', False
+        for line in header:
+            if line.startswith('format'):
+                fmt = line.split()[1]
+            elif line.startswith('element vertex'):
+                n_verts = int(line.split()[-1])
+                in_vertex = True
+            elif line.startswith('element'):
+                in_vertex = False
+            elif line.startswith('property') and in_vertex:
+                props.append(line.split()[1:])
+        red_idx = [i for i, p in enumerate(props) if p[-1] == 'red']
+        if not red_idx:
+            return np.array([], np.int64)
+        ri = red_idx[0]
+        if fmt == 'ascii':
+            reds = np.asarray([float(f.readline().split()[ri])
+                               for _ in range(n_verts)])
+        else:
+            endian = '<' if 'little' in fmt else '>'
+            dtype = np.dtype([(f'f{i}', endian + _PLY_TYPES[p[0]])
+                              for i, p in enumerate(props)])
+            data = np.frombuffer(f.read(dtype.itemsize * n_verts),
+                                 dtype=dtype, count=n_verts)
+            reds = data[f'f{ri}'].astype(np.float64)
+        return np.where(reds == 255)[0].astype(np.int64)
