@@ -58,7 +58,8 @@ points, 16 near clusters):
              PyTorch plus kernel 7) through their entry points at B=64, rest
              and posed, with their in/out flips at 0.99 against kernel 2 and
              exact launch counts; kernels 3 and 7 against their plain
-             versions at B 1 and 8, rest and posed; times at B=4 and 64 of
+             versions at B 1 and 8, rest and posed, and on the posed B=64
+             body, with their ptxas lines; times at B=4 and 64 of
              kernels 3, 7 and 2 and of the whole hierarchical route, each
              beside its plain version's and its bound, and a torch.profiler
              breakdown of the route.
@@ -826,7 +827,6 @@ def _flips(got, want):
 
 def phase_routes(runtime, results, launches):
     """Phase 11: the affine and hierarchical winding routes."""
-    from tuch_tpu_torch.ops import contact as PC
     from tuch_tpu_torch.ops import contact_kernels as CK
     from tuch_tpu_torch.ops import winding_hier as PH
     smpl, faces = runtime.smpl, runtime.contact.faces
@@ -872,33 +872,19 @@ def phase_routes(runtime, results, launches):
           f'{peak:.3f} GiB', flush=True)
     del outs
 
-    # kernels 3 and 7 against their plain versions
+    # kernels 3 and 7 against their plain versions, and on the posed
+    # training batch, where an FMA variant of kernel 2 failed its bar
     err = {'winding_affine': 0.0, 'winding_near': 0.0}
     for B in (1, 8):
         held = {'rest': smpl.v_template[None].expand(B, -1, -1)
                 .contiguous(), 'posed': posed_verts(smpl, B, 0.3, B)}
         for name, v in held.items():
-            p4 = CK.affine_points(v)
-            tc = CK.affine_triangle_constants(v[:, faces])
-            got = CK.winding_numbers_affine_cuda(p4, tc)
-            want = CK.winding_numbers_affine_ref(p4, tc)
-            prob = PH.hier_problem(v, clusters, ROUTE_NEAR)
-            near = PH.near_field_cuda(prob.sel, prob.pts, prob.tris)
-            near_want = PH.near_field_ref(prob.sel, prob.pts, prob.tris)
-            torch.cuda.synchronize()
-            ea = (got - want).abs().max().item()
-            en = (near - near_want).abs().max().item() * PC.INV_4PI
-            flips = _flips(got, want)
-            print(f'[routes] kernels {name} B={B}: affine max_abs_err '
-                  f'{ea:.3g} (tol {AFFINE_ATOL}), in/out flips {flips}; '
-                  f'near field max_abs_err {en:.3g} in winding units (tol '
-                  f'{NEAR_ATOL})', flush=True)
-            check(got.shape == want.shape and ea <= AFFINE_ATOL
-                  and flips == 0, f'affine {name} B={B}: {ea}, {flips}')
-            check(near.shape == near_want.shape and en <= NEAR_ATOL,
-                  f'near field {name} B={B}: {en}')
-            err['winding_affine'] = max(err['winding_affine'], ea)
-            err['winding_near'] = max(err['winding_near'], en)
+            _hold_route_kernels(f'{name} B={B}', v, faces, clusters, err)
+    _hold_route_kernels(f'posed B={TRAIN_B}', bodies['posed'], faces,
+                        clusters, err)
+    print(f'[routes] ptxas: affine_kernel '
+          f'{ptxas_line("winding_affine", "affine_kernel")}; near_kernel '
+          f'{ptxas_line("winding_near", "near_kernel")}', flush=True)
 
     # times at the demo's batch and the training batch
     for B in (FIT_IMAGES, TRAIN_B):
@@ -907,6 +893,37 @@ def phase_routes(runtime, results, launches):
         _time_routes(B, verts, faces, clusters, results, err)
     del bodies
     torch.cuda.empty_cache()
+
+
+def _hold_route_kernels(label, v, faces, clusters, err):
+    """Kernels 3 and 7 against their plain versions on one batch of bodies
+    (the plain versions in batches of PLAIN_CHUNK); the largest errors go
+    into err."""
+    from tuch_tpu_torch.ops import contact as PC
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.ops import winding_hier as PH
+    p4 = CK.affine_points(v)
+    rows = CK.affine_constant_rows(v[:, faces])
+    got = CK.winding_numbers_affine_cuda(p4, rows)
+    want = torch.cat(_chunked(CK.winding_numbers_affine_ref, p4,
+                              rows.transpose(1, 2).contiguous()))
+    prob = PH.hier_problem(v, clusters, ROUTE_NEAR)
+    near = PH.near_field_cuda(prob.sel, prob.pts, prob.tris)
+    near_want = torch.cat(_chunked(PH.near_field_ref, prob.sel, prob.pts,
+                                   prob.tris))
+    torch.cuda.synchronize()
+    ea = (got - want).abs().max().item()
+    en = (near - near_want).abs().max().item() * PC.INV_4PI
+    flips = _flips(got, want)
+    print(f'[routes] kernels {label}: affine max_abs_err {ea:.3g} (tol '
+          f'{AFFINE_ATOL}), in/out flips {flips}; near field max_abs_err '
+          f'{en:.3g} in winding units (tol {NEAR_ATOL})', flush=True)
+    check(got.shape == want.shape and ea <= AFFINE_ATOL and flips == 0,
+          f'affine {label}: {ea}, {flips}')
+    check(near.shape == near_want.shape and en <= NEAR_ATOL,
+          f'near field {label}: {en}')
+    err['winding_affine'] = max(err['winding_affine'], ea)
+    err['winding_near'] = max(err['winding_near'], en)
 
 
 def _time_routes(B, verts, faces, clusters, results, err):
@@ -920,7 +937,8 @@ def _time_routes(B, verts, faces, clusters, results, err):
     K, C = clusters.num_clusters, clusters.cluster_size
     Qp = clusters.vert_perm.shape[0]
     tris = verts[:, faces]
-    p4, tc = CK.affine_points(verts), CK.affine_triangle_constants(tris)
+    p4, rows = CK.affine_points(verts), CK.affine_constant_rows(tris)
+    tc = rows.transpose(1, 2).contiguous()
     prob = PH.hier_problem(verts, clusters, ROUTE_NEAR)
     T, M = prob.sel.shape[1:]
     near_pairs = B * Qp * M * C
@@ -935,7 +953,7 @@ def _time_routes(B, verts, faces, clusters, results, err):
 
     plans = {
         'winding_affine': (
-            lambda: CK.winding_numbers_affine_cuda(p4, tc),
+            lambda: CK.winding_numbers_affine_cuda(p4, rows),
             lambda: _chunked(CK.winding_numbers_affine_ref, p4, tc),
             bound(AFFINE_OPS_PER_PAIR * B * V * F,
                   4 * B * (4 * V + 28 * F + V))),

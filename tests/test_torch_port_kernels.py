@@ -149,7 +149,7 @@ def test_winding_route_wrappers_refuse_cpu_tensors():
     sel = torch.zeros((2, 1, 1), dtype=torch.int32)
     calls = [
         lambda: CK.winding_numbers_affine_cuda(torch.zeros(2, 4, 10),
-                                               torch.zeros(2, 28, 7)),
+                                               torch.zeros(2, 7, 28)),
         lambda: PH.near_field_cuda(sel, torch.zeros(2, 3, 8),
                                    torch.zeros(2, 1, 9, 4)),
     ]
@@ -202,6 +202,80 @@ def test_scatter_size_check_refuses_what_32_bit_indexing_cannot_address(
             G.check_sizes(B, Q, V, 'scatter')
 
 
+def _constexpr(source, name):
+    """The value of `constexpr int name = value;` in csrc/<source>."""
+    import re
+    return int(re.search(rf'constexpr int {name} = (\d+);',
+                         _csrc(source)).group(1))
+
+
+@pytest.mark.parametrize('B', [1, 4, 8, 64, 200])
+@pytest.mark.parametrize('Q,F', [(6890, 13776), (1, 300), (511, 1000),
+                                 (513, 129), (7168, 128)])
+def test_affine_plan_covers_the_triangles_in_whole_tiles(B, Q, F):
+    """Kernel 3's split, planned from the shape csrc/winding_affine.cu
+    reports (threads, queries per thread, triangles per tile): whole tiles
+    that cover the axis, no empty split, no more blocks than the target
+    asks once the query blocks alone fall short of it."""
+    shape = (_constexpr('winding_affine.cu', 'TQ'),
+             _constexpr('winding_affine.cu', 'QPT'),
+             _constexpr('winding_affine.cu', 'TF'))
+    chunk, splits = CK.affine_plan(B, Q, F, shape)
+    base = B * -(-Q // (shape[0] * shape[1]))
+    assert chunk % shape[2] == 0 and splits >= 1
+    assert chunk * splits >= F > chunk * (splits - 1)
+    assert base * splits <= max(base, CK.TARGET_BLOCKS + base)
+    if base >= CK.TARGET_BLOCKS:
+        assert splits == 1
+
+
+@pytest.mark.parametrize('B', [1, 4, 64])
+@pytest.mark.parametrize('T,TQ,M', [(14, 512, 16), (3, 200, 7), (2, 513, 5),
+                                    (1, 1, 1)])
+def test_near_plan_covers_the_clusters(B, T, TQ, M):
+    """Kernel 7's split of the selected clusters, planned from the shape
+    csrc/winding_near.cu reports: every m in exactly one split, and a whole
+    tile of TQ = 512 points in one block."""
+    shape = (_constexpr('winding_near.cu', 'NT'),
+             _constexpr('winding_near.cu', 'QPT'),
+             _constexpr('winding_near.cu', 'CT'))
+    assert shape[0] * shape[1] == 512
+    mchunk, splits = PH.near_plan(B, T, TQ, M, shape)
+    assert mchunk >= 1 and mchunk * splits >= M > mchunk * (splits - 1)
+    base = B * T * -(-TQ // (shape[0] * shape[1]))
+    assert base * splits <= max(base, CK.TARGET_BLOCKS + base)
+
+
+def test_route_wrappers_read_their_shape_from_the_library(monkeypatch):
+    """affine_shape and near_shape ask the built library
+    (tuch_<name>_shape), so the plans follow the kernels' constants."""
+    from tuch_tpu_torch.ops import _build
+
+    def fake(values):
+        def fn(out):
+            for i, v in enumerate(values):
+                out[i] = v
+            return 0
+        return fn
+    monkeypatch.setattr(_build, '_entries', {
+        ('winding_affine', 'tuch_winding_affine_shape'):
+            (None, fake((64, 8, 32))),
+        ('winding_near', 'tuch_winding_near_shape'):
+            (None, fake((96, 2, 128)))})
+    assert CK.affine_shape() == (64, 8, 32)
+    assert PH.near_shape() == (96, 2, 128)
+    assert CK.affine_plan(1, 6890, 13776, CK.affine_shape())[0] % 32 == 0
+
+
+def test_affine_constant_rows_are_the_plain_layout_transposed():
+    verts, faces = _body()
+    tris = verts[:, faces]
+    rows = CK.affine_constant_rows(tris)
+    assert rows.shape == (2, 296, 28) and rows.is_contiguous()
+    assert torch.equal(rows.transpose(1, 2),
+                       CK.affine_triangle_constants(tris))
+
+
 class _NoLock:
     def __enter__(self):
         raise AssertionError('the lock was taken')
@@ -237,11 +311,16 @@ def test_build_entry_resolves_a_symbol_once(monkeypatch):
     assert _build.entry('gather', 'tuch_gather_rows', args) == (lib, fn)
 
 
+def _csrc(name):
+    with open(os.path.join(REPO, 'tuch_tpu_torch', 'csrc', name)) as f:
+        return f.read()
+
+
 def _atan_coefficients():
-    """P's coefficients in csrc/winding.cu, from the highest term down."""
+    """P's coefficients in csrc/solid_angle.cuh, from the highest term
+    down."""
     import re
-    src = open(os.path.join(REPO, 'tuch_tpu_torch', 'csrc',
-                            'winding.cu')).read()
+    src = _csrc('solid_angle.cuh')
     body = src[src.index('float atan2_poly'):src.index('float r = p * t;')]
     first = re.search(r'float p = ([-+0-9.e]+)f;', body).group(1)
     rest = re.findall(r'p = fmaf\(p, s, ([-+0-9.e]+)f\);', body)
@@ -249,7 +328,7 @@ def _atan_coefficients():
 
 
 def _atan2_poly(y, x):
-    """csrc/winding.cu atan2_poly in float32 (exact reciprocal; FMA in
+    """csrc/solid_angle.cuh atan2_poly in float32 (exact reciprocal; FMA in
     float64, rounded once)."""
     y, x = np.float32(y), np.float32(x)
     ax, ay = np.abs(x), np.abs(y)
@@ -273,6 +352,20 @@ def test_winding_atan_polynomial_is_minimax_to_1_5e_7_relative():
     got = _atan2_poly(t, np.ones_like(t))
     want = np.arctan(t.astype(np.float64))
     assert (np.abs(got - want) / want).max() <= 1.5e-7
+
+
+@pytest.mark.parametrize('source', ['winding.cu', 'winding_affine.cu',
+                                    'winding_near.cu'])
+def test_winding_sources_define_no_atan2_of_their_own(source):
+    """One copy of the polynomial atan2 and of the pair: the three winding
+    kernels take them from solid_angle.cuh and call no IEEE atan2f."""
+    import re
+    src = _csrc(source)
+    assert '#include "solid_angle.cuh"' in src
+    assert not re.search(r'float\s+(atan2\w*|half_angle|solid_angle)\s*\(',
+                         src)
+    assert 'atan2f(' not in src
+    assert ('tuch::half_angle(' in src) != ('tuch::atan2_poly(' in src)
 
 
 def test_winding_atan2_polynomial_keeps_ieee_signs_and_zeros():
@@ -650,9 +743,12 @@ def test_scatter_kernel_is_one_kernel_and_no_memset_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('B,Q,F', [(1, 130, 300), (3, 7, 1000),
-                                   (3, 600, 129)])
+                                   (3, 600, 129), (1, 1, 300),
+                                   (2, 511, 700), (2, 513, 700),
+                                   (1, 6890, 1000), (64, 600, 1000)])
 def test_affine_kernel_matches_plain_version_on_card(cuda_device, B, Q, F):
-    """Ragged query and triangle tiles, one and several splits, queries on
+    """Ragged query and triangle tiles around the 512-query block, one and
+    several splits (B = 1 splits the triangles, B = 64 barely), queries on
     triangle corners (the first Q vertices): atol 2e-5 (float32 summation
     order; la2, lb2, lc2 and so the corner mask are the same bits on both),
     equal in/out decisions."""
@@ -669,6 +765,18 @@ def test_affine_kernel_matches_plain_version_on_card(cuda_device, B, Q, F):
     assert torch.equal(got <= 0.99, want <= 0.99)
 
 
+@pytest.mark.cuda
+def test_affine_wrapper_refuses_a_misaligned_layout_on_card(cuda_device):
+    verts, faces = _body(B=2, V=40, F=30, device=cuda_device)
+    p4 = CK.affine_points(verts)
+    rows = CK.affine_constant_rows(verts[:, faces])
+    flat = torch.cat([rows.new_zeros(1), rows.reshape(-1)])
+    with pytest.raises(ValueError, match='16-byte'):
+        CK.winding_numbers_affine_cuda(p4, flat[1:].view(rows.shape))
+    with pytest.raises(ValueError, match=r'\(B, F, 28\)'):
+        CK.winding_numbers_affine_cuda(p4, rows.transpose(1, 2).contiguous())
+
+
 def _near_problem(B, TQ, C, device, T=3, K=5, M=7):
     """Small triangles (corners 0.1 around unit-normal centres), sel with
     repeated and out-of-order clusters (M > K), points on the corners of
@@ -680,7 +788,8 @@ def _near_problem(B, TQ, C, device, T=3, K=5, M=7):
     pts = rng.randn(B, 3, T * TQ).astype(np.float32)
     tris = (np.tile(rng.randn(B, K, 3, C), (1, 1, 3, 1))
             + 0.1 * rng.randn(B, K, 9, C)).astype(np.float32)
-    pts[:, :, :10] = tris[:, 0, 0:3, :10]
+    n = min(10, TQ)
+    pts[:, :, :n] = tris[:, 0, 0:3, :n]
     tris[:, K - 1] = np.tile(tris[:, K - 1, 0:3], (1, 3, 1))
     pts[:, :, TQ] = tris[:, K - 1, 0:3, 0]
     sel = rng.randint(0, K, (B, T, M)).astype(np.int32)
@@ -690,12 +799,15 @@ def _near_problem(B, TQ, C, device, T=3, K=5, M=7):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('B,TQ,C', [(1, 512, 256), (3, 200, 300)])
+@pytest.mark.parametrize('B,TQ,C', [(1, 512, 256), (3, 200, 300),
+                                    (64, 512, 256), (2, 513, 100),
+                                    (2, 1, 256)])
 def test_near_kernel_matches_plain_version_on_card(cuda_device, B, TQ, C):
-    """Kernel 7 against near_field_ref: a ragged point block (TQ = 200), a
-    ragged triangle stage (C = 300), the m axis split over the grid; atol
-    2e-5 in winding-number units (the sum over 4 pi), as kernel 2; the
-    degenerate faces add exactly 0."""
+    """Kernel 7 against near_field_ref: a whole tile in one block (TQ =
+    512), a ragged point block (TQ = 200, 513, 1), a ragged triangle stage
+    (C = 300, 100), the m axis split over the grid (B = 1) or not (B = 64),
+    points on triangle corners; atol 2e-5 in winding-number units (the sum
+    over 4 pi), as kernel 2; the degenerate faces add exactly 0."""
     sel, pts, tris = _near_problem(B, TQ, C, cuda_device)
     before = PH.near_field_cuda.launches
     got = PH.near_field(sel, pts, tris)

@@ -6,7 +6,8 @@ time, by building variants of them.
 
 Builds tuch_tpu_torch/csrc/winding.cu and csrc/gather.cu as they are and
 variants of each with nvcc, one set of text substitutions per variant
-(every occurrence), and kernel 6's earlier designs from
+(every occurrence, in the source and its copy of csrc/solid_angle.cuh,
+which holds kernel 2's pair), and kernel 6's earlier designs from
 tools/scatter_trials.cu, and times them on the SMPLify-DC slice's inputs:
 the synthetic 6890-vertex body posed from a seed at B=64 (and B=4 for the
 scatter), its 13776 faces, and the masked nearest vertex of every vertex as
@@ -39,19 +40,20 @@ sys.path.insert(0, str(ROOT))
 from tuch_tpu_torch.ops import _build  # noqa: E402
 
 CSRC = ROOT / 'tuch_tpu_torch' / 'csrc'
+# kernel 2's pair is tuch::half_angle in csrc/solid_angle.cuh
 SQRT_APPROX = [
-    ('namespace {\n', 'namespace {\n__device__ __forceinline__ float '
-     'sqrt_approx(float x) {\n  float r;\n  asm("sqrt.approx.f32 %0, %1;" '
-     ': "=f"(r) : "f"(x));\n  return r;\n}\n'),
-    ('sqrtf(tuch::sq_norm(', 'sqrt_approx(tuch::sq_norm(')]
-FMA_TERMS = [('tuch::sq_norm(ax, ay, az)', 'fmaf(ax, ax, fmaf(ay, ay, az * az))'),
-             ('tuch::sq_norm(bx, by, bz)', 'fmaf(bx, bx, fmaf(by, by, bz * bz))'),
-             ('tuch::sq_norm(cx, cy, cz)', 'fmaf(cx, cx, fmaf(cy, cy, cz * cz))'),
-             ('tuch::dot(ax, ay, az, bx, by, bz)',
+    ('namespace tuch {\n', 'namespace tuch {\n__device__ __forceinline__ '
+     'float sqrt_approx(float x) {\n  float r;\n  asm("sqrt.approx.f32 %0, '
+     '%1;" : "=f"(r) : "f"(x));\n  return r;\n}\n'),
+    ('sqrtf(sq_norm(', 'sqrt_approx(sq_norm(')]
+FMA_TERMS = [('sq_norm(ax, ay, az)', 'fmaf(ax, ax, fmaf(ay, ay, az * az))'),
+             ('sq_norm(bx, by, bz)', 'fmaf(bx, bx, fmaf(by, by, bz * bz))'),
+             ('sq_norm(cx, cy, cz)', 'fmaf(cx, cx, fmaf(cy, cy, cz * cz))'),
+             ('dot(ax, ay, az, bx, by, bz)',
               'fmaf(ax, bx, fmaf(ay, by, az * bz))'),
-             ('tuch::dot(bx, by, bz, cx, cy, cz)',
+             ('dot(bx, by, bz, cx, cy, cz)',
               'fmaf(bx, cx, fmaf(by, cy, bz * cz))'),
-             ('tuch::dot(ax, ay, az, cx, cy, cz)',
+             ('dot(ax, ay, az, cx, cy, cz)',
               'fmaf(ax, cx, fmaf(ay, cy, az * cz))')]
 QPT = 'constexpr int QPT = 4;'
 # name -> (substitutions, queries per block)
@@ -101,19 +103,26 @@ def card_line() -> str:
 
 def start(workdir: Path, source: Path, variants: dict, flags=None):
     """{variant: (library, nvcc process)}: `source` with each variant's
-    substitutions (every occurrence) or, with `flags`, each variant's nvcc
-    flags; one nvcc process each, all started together."""
-    base = source.read_text()
+    substitutions or, with `flags`, each variant's nvcc flags; one nvcc
+    process each, all started together. A substitution replaces every
+    occurrence in the source and in its directory's copy of csrc/'s headers
+    (solid_angle.cuh), which the source's #include "..." finds first."""
+    texts = {p.name: p.read_text() for p in sorted(CSRC.glob('*.cuh'))}
+    texts[source.name] = source.read_text()
     procs = {}
     for i, (variant, subs) in enumerate(variants.items()):
-        src = base
+        files = dict(texts)
         for old, new in ([] if flags else subs):
-            if old not in src:
-                raise RuntimeError(f'{source.name} changed: {old[:50]!r}')
-            src = src.replace(old, new)
-        path = workdir / f'{source.stem}{i}.cu'
-        path.write_text(src)
-        lib = workdir / f'lib{source.stem}{i}.so'
+            if not any(old in text for text in files.values()):
+                raise RuntimeError(f'{source.name} and its headers changed: '
+                                   f'{old[:50]!r}')
+            files = {k: v.replace(old, new) for k, v in files.items()}
+        vdir = workdir / f'{source.stem}{i}'
+        vdir.mkdir(parents=True, exist_ok=True)
+        for name, text in files.items():
+            (vdir / name).write_text(text)
+        path = vdir / source.name
+        lib = vdir / f'lib{source.stem}{i}.so'
         cmd = ['nvcc', *_build.NVCC_FLAGS, *(subs if flags else []),
                f'-I{CSRC}', '-o', str(lib), str(path)]
         procs[variant] = (lib, subprocess.Popen(

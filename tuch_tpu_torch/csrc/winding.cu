@@ -24,19 +24,21 @@
 // VMEM and evaluates a minimax polynomial for atan2 behind an approximate
 // reciprocal. Here:
 //   * atan2 is one approximate reciprocal (__fdividef) and a degree-8
-//     polynomial in t^2 for atan on [0, 1], minimax in relative error with
-//     its leading coefficient exactly 1 (at most 1.5e-7 relative in fp32, so
-//     the many small far-field angles carry no bias), then the octant
-//     folding. The cases that decide a face's contribution at a corner or a
-//     degenerate face are IEEE's exactly: atan2(+-0, +0) = +-0 and
-//     atan2(+-0, x < 0 or -0) = +-pi, the sign from y's sign bit;
+//     polynomial in t^2 for atan on [0, 1] (tuch::atan2_poly in
+//     solid_angle.cuh, shared with kernels 3 and 7), minimax in relative
+//     error with its leading coefficient exactly 1 (at most 1.5e-7
+//     relative in fp32, so the many small far-field angles carry no bias),
+//     then the octant folding. The cases that decide a face's contribution
+//     at a corner or a degenerate face are IEEE's exactly: atan2(+-0, +0) =
+//     +-0 and atan2(+-0, x < 0 or -0) = +-pi, the sign from y's sign bit;
 //   * the numerator a . (b x c) and the denominator keep the plain
 //     version's bits: every product and sum rounded on its own in its order
-//     (solid_angle.cuh), IEEE square roots. Near the surface the
-//     denominator's four terms cancel, so its rounding decides the angle:
-//     with FMA in the squared lengths and dot products, or sqrt.approx, the
-//     kernel was 1.9e-4 (1.1e-4) from the plain version on a posed body at
-//     B = 64, ten times the 2e-5 bar (tools/slice_variants.py). The same
+//     (tuch::half_angle in solid_angle.cuh), IEEE square roots. Near the
+//     surface the denominator's four terms cancel, so its rounding decides
+//     the angle: with FMA in the squared lengths and dot products, or
+//     sqrt.approx, the kernel was 1.9e-4 (1.1e-4) from the plain version on
+//     a posed body at B = 64, ten times the 2e-5 bar
+//     (tools/slice_variants.py). The same
 //     rounding keeps the exact zeros: the three corners of a padding face
 //     are equal, so b x c is exactly 0, and at a triangle corner the
 //     denominator starts from +0 and adds only zeros, so the faces around a
@@ -57,61 +59,11 @@ namespace {
 
 using tuch::add;
 using tuch::mul;
-using tuch::sub;
 
 constexpr int TQ = 128;       // threads per block
 constexpr int QPT = 4;        // query points per thread
 constexpr int BQ = TQ * QPT;  // queries per block: contact_kernels.WINDING_TQ
 constexpr int TF = 128;       // triangles per shared-memory tile
-
-constexpr float HALF_PI = 1.57079632679489662f;
-constexpr float PI = 3.14159265358979324f;
-
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  // the floor keeps 0 / 0 at 0 (a query on a corner: y = +-0, x = +0)
-  const float t = __fdividef(fminf(ax, ay), fmaxf(fmaxf(ax, ay), 1e-30f));
-  const float s = t * t;
-  // atan(t) = t P(t^2) on [0, 1], P by Horner from its highest term: the
-  // coefficients were fitted in float64 to the minimax relative error and
-  // rounded to float32 (tests/test_torch_port_kernels.py checks them)
-  float p = 2.903553890e-03f;
-  p = fmaf(p, s, -1.628301665e-02f);
-  p = fmaf(p, s, 4.303938523e-02f);
-  p = fmaf(p, s, -7.533677667e-02f);
-  p = fmaf(p, s, 1.065467894e-01f);
-  p = fmaf(p, s, -1.420713365e-01f);
-  p = fmaf(p, s, 1.999305487e-01f);
-  p = fmaf(p, s, -3.333309293e-01f);
-  p = fmaf(p, s, 1.000000000e+00f);
-  float r = p * t;
-  if (ay > ax) r = HALF_PI - r;
-  if (signbit(x)) r = PI - r;
-  return copysignf(r, y);
-}
-
-// atan2(a . (b x c), denominator): half the solid angle of one pair. The
-// numerator and the denominator are the plain version's bits
-// (tuch::solid_angle's arithmetic); only the atan2 differs.
-__device__ __forceinline__ float half_angle(float qx, float qy, float qz,
-                                            float4 t0, float4 t1, float4 t2) {
-  const float ax = sub(t0.x, qx), ay = sub(t0.y, qy), az = sub(t0.z, qz);
-  const float bx = sub(t0.w, qx), by = sub(t1.x, qy), bz = sub(t1.y, qz);
-  const float cx = sub(t1.z, qx), cy = sub(t1.w, qy), cz = sub(t2.x, qz);
-  const float la = sqrtf(tuch::sq_norm(ax, ay, az));
-  const float lb = sqrtf(tuch::sq_norm(bx, by, bz));
-  const float lc = sqrtf(tuch::sq_norm(cx, cy, cz));
-  const float numer = add(add(mul(ax, sub(mul(by, cz), mul(bz, cy))),
-                              mul(ay, sub(mul(bz, cx), mul(bx, cz)))),
-                          mul(az, sub(mul(bx, cy), mul(by, cx))));
-  const float dab = tuch::dot(ax, ay, az, bx, by, bz);
-  const float dbc = tuch::dot(bx, by, bz, cx, cy, cz);
-  const float dac = tuch::dot(ax, ay, az, cx, cy, cz);
-  const float denom =
-      add(add(add(mul(mul(la, lb), lc), mul(dab, lc)), mul(dac, lb)),
-          mul(dbc, la));
-  return atan2_poly(numer, denom);
-}
 
 // Grid (ceil(Q / BQ), splits, B). Split s covers triangles
 // [s * chunk, min(F, (s + 1) * chunk)) and writes dst[(b * splits + s) * Q
@@ -156,7 +108,8 @@ __global__ void __launch_bounds__(TQ)
                    t2 = tile[3 * j + 2];
 #pragma unroll
       for (int k = 0; k < QPT; ++k)
-        acc[k] = add(acc[k], half_angle(qx[k], qy[k], qz[k], t0, t1, t2));
+        acc[k] = add(acc[k],
+                     tuch::half_angle(qx[k], qy[k], qz[k], t0, t1, t2));
     }
   }
 #pragma unroll

@@ -25,7 +25,6 @@ from tuch_tpu_torch.ops import _build
 from tuch_tpu_torch.ops import contact
 
 WINDING_TQ, WINDING_TF = 512, 128   # csrc/winding.cu BQ (TQ x QPT), TF
-AFFINE_TQ, AFFINE_TF = 128, 128     # csrc/winding_affine.cu TQ, TF
 # Blocks that fill the card: 132 SMs x 8 resident blocks. A kernel whose
 # query blocks fall short splits its reduction axis over the grid.
 TARGET_BLOCKS = 132 * 8
@@ -105,14 +104,19 @@ def pack_mask_bits(mask: torch.Tensor) -> torch.Tensor:
     return packed.view(torch.int32)       # little-endian: byte k, bits 8k+
 
 
+def kernel_shape(name: str, n: int):
+    """The n ints that csrc/<name>.cu's tuch_<name>_shape reports: the
+    built kernel's tile shape, which its wrapper plans the grid from."""
+    lib, fn = _build.entry(name, f'tuch_{name}_shape', [ctypes.c_void_p])
+    out = (ctypes.c_int * n)()
+    fn(out)
+    return tuple(out)
+
+
 def masked_min_shape():
     """(threads, queries per thread, bodies per block, searched vertices
     per tile) of the built csrc/masked_min.cu."""
-    lib, fn = _build.entry('masked_min', 'tuch_masked_min_shape',
-                           [ctypes.c_void_p])
-    out = (ctypes.c_int * 4)()
-    fn(out)
-    return tuple(out)
+    return kernel_shape('masked_min', 4)
 
 
 def masked_min_plan(B: int, V: int, shape):
@@ -169,32 +173,49 @@ def masked_min_dist_cuda(verts: torch.Tensor, mask: torch.Tensor,
     return d2, idx
 
 
-def winding_numbers_affine_cuda(points4: torch.Tensor, tc: torch.Tensor
+def affine_shape():
+    """(threads, queries per thread, triangles per tile) of the built
+    csrc/winding_affine.cu."""
+    return kernel_shape('winding_affine', 3)
+
+
+def affine_plan(B: int, Q: int, F: int, shape):
+    """(chunk, splits) of kernel 3's triangle axis for B rows of Q queries
+    against F triangles, given affine_shape()."""
+    T, R, TF = shape
+    return _split(B * -(-Q // (T * R)), F, TF)
+
+
+def winding_numbers_affine_cuda(points4: torch.Tensor, rows: torch.Tensor
                                 ) -> torch.Tensor:
-    """Launch kernel 3: points4 (B, 4, Q) rows [qx qy qz q.q], tc (B, 28,
-    F) from affine_triangle_constants -> (B, Q)."""
+    """Launch kernel 3: points4 (B, 4, Q) rows [qx qy qz q.q], rows (B, F,
+    28) from affine_constant_rows (each triangle's seven groups in a row;
+    affine_triangle_constants is its transpose) -> (B, Q)."""
     what = 'winding_numbers_affine_cuda'
-    for name, x, rows in (('points4', points4, 4), ('tc', tc, 28)):
+    for name, x, dim, size in (('points4', points4, 1, 4),
+                               ('rows', rows, 2, 28)):
         if x.device.type != 'cuda':
             raise ValueError(f'{what} needs CUDA tensors, got {name} on '
                              f'{x.device}')
-        if x.dtype != torch.float32 or x.dim() != 3 or x.shape[1] != rows \
-                or not x.is_contiguous():
+        if x.dtype != torch.float32 or x.dim() != 3 \
+                or x.shape[dim] != size or not x.is_contiguous():
+            want = '(B, 4, Q)' if dim == 1 else '(B, F, 28)'
             raise ValueError(f'{what}: {name} must be a contiguous float32 '
-                             f'(B, {rows}, n) tensor, got {x.dtype} '
+                             f'{want} tensor, got {x.dtype} '
                              f'{tuple(x.shape)}')
     B, _, Q = points4.shape
-    F = tc.shape[2]
-    if tc.shape[0] != B or tc.device != points4.device:
-        raise ValueError(f'{what}: tc must be (B={B}, 28, F) on '
-                         f'{points4.device}, got {tuple(tc.shape)} on '
-                         f'{tc.device}')
+    F = rows.shape[1]
+    if rows.shape[0] != B or rows.device != points4.device \
+            or rows.data_ptr() % 16:
+        raise ValueError(f'{what}: rows must be (B={B}, F, 28), 16-byte '
+                         f'aligned, on {points4.device}; got '
+                         f'{tuple(rows.shape)} on {rows.device}')
     out = torch.empty((B, Q), dtype=torch.float32, device=points4.device)
     if B * Q == 0:
         return out
     if F == 0:
         return out.zero_()
-    chunk, splits = _split(B * -(-Q // AFFINE_TQ), F, AFFINE_TF)
+    chunk, splits = affine_plan(B, Q, F, affine_shape())
     partial = torch.empty((B, splits, Q), dtype=torch.float32,
                           device=points4.device) if splits > 1 else None
     lib, fn = _build.entry(
@@ -202,7 +223,7 @@ def winding_numbers_affine_cuda(points4: torch.Tensor, tc: torch.Tensor
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(points4.device):
-        err = fn(points4.data_ptr(), tc.data_ptr(), out.data_ptr(),
+        err = fn(points4.data_ptr(), rows.data_ptr(), out.data_ptr(),
                  None if partial is None else partial.data_ptr(), B, Q, F,
                  chunk, contact.INV_4PI, _stream(points4))
     _build.check(lib, err, 'affine winding kernel launch')
@@ -267,11 +288,12 @@ def _dot3(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return ux * vx + uy * vy + uz * vz
 
 
-def affine_triangle_constants(tris: torch.Tensor) -> torch.Tensor:
-    """(B, F, 3, 3) corners -> (B, 28, F) constants of kernel 3.
+def affine_constant_rows(tris: torch.Tensor) -> torch.Tensor:
+    """(B, F, 3, 3) corners -> (B, F, 28): each triangle's constants of
+    kernel 3 in a row, the layout the kernel reads.
 
-    Seven groups of four rows, each [-vec, const], so that [q, 1] . group
-    is const - q . vec (tuch_tpu/ops/contact_pallas.py,
+    Seven groups of four, each [-vec, const], so that [q, 1] . group is
+    const - q . vec (tuch_tpu/ops/contact_pallas.py,
     _affine_triangle_constants):
       numer  BxC + CxA + AxB, det(A, B, C);   dab  A+B, A.B;
       dbc    B+C, B.C;   dac  A+C, A.C;   la2  2A, A.A;   lb2  2B, B.B;
@@ -283,9 +305,14 @@ def affine_triangle_constants(tris: torch.Tensor) -> torch.Tensor:
               (Bc + C, _dot3(Bc, C)), (A + C, _dot3(A, C)),
               (2 * A, _dot3(A, A)), (2 * Bc, _dot3(Bc, Bc)),
               (2 * C, _dot3(C, C))]
-    tc = torch.cat([torch.cat([-vec, const[..., None]], dim=-1)
-                    for vec, const in groups], dim=-1)      # (B, F, 28)
-    return tc.transpose(1, 2).contiguous()
+    return torch.cat([torch.cat([-vec, const[..., None]], dim=-1)
+                      for vec, const in groups], dim=-1).contiguous()
+
+
+def affine_triangle_constants(tris: torch.Tensor) -> torch.Tensor:
+    """(B, F, 3, 3) corners -> (B, 28, F): affine_constant_rows
+    transposed, the JAX package's layout and the plain version's."""
+    return affine_constant_rows(tris).transpose(1, 2).contiguous()
 
 
 def affine_points(points: torch.Tensor) -> torch.Tensor:
@@ -338,7 +365,8 @@ def winding_numbers_affine(points: torch.Tensor, verts: torch.Tensor,
     (F, 3) -> (B, Q). The constants are formed in PyTorch, as the JAX
     wrapper forms them outside its kernel. Experimental (module note)."""
     points4 = affine_points(points)
-    tc = affine_triangle_constants(verts[:, faces.long()])
+    tris = verts[:, faces.long()]
     if points.device.type == 'cpu':
-        return winding_numbers_affine_ref(points4, tc)
-    return winding_numbers_affine_cuda(points4, tc)
+        return winding_numbers_affine_ref(points4,
+                                          affine_triangle_constants(tris))
+    return winding_numbers_affine_cuda(points4, affine_constant_rows(tris))

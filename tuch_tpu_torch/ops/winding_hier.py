@@ -33,9 +33,8 @@ import torch
 from tuch_tpu_torch import resolve_device
 from tuch_tpu_torch.ops import _build
 from tuch_tpu_torch.ops import contact
-from tuch_tpu_torch.ops.contact_kernels import _cross, _dot3, _split, _stream
-
-NEAR_NT = 128   # csrc/winding_near.cu NT: points per block
+from tuch_tpu_torch.ops.contact_kernels import (_cross, _dot3, _split,
+                                                _stream, kernel_shape)
 
 
 class WindingClusters(NamedTuple):
@@ -202,6 +201,20 @@ def near_field_ref(sel: torch.Tensor, pts: torch.Tensor,
     return acc.reshape(B, Qp)
 
 
+def near_shape():
+    """(threads, points per thread, triangles per stage) of the built
+    csrc/winding_near.cu."""
+    return kernel_shape('winding_near', 3)
+
+
+def near_plan(B: int, T: int, TQ: int, M: int, shape):
+    """(mchunk, splits) of kernel 7's selected clusters for B rows of T
+    tiles of TQ points, given near_shape(): the blocks of a tile times the
+    splits approach the card's target."""
+    NT, R, _ = shape
+    return _split(B * T * -(-TQ // (NT * R)), M, 1)
+
+
 def near_field_cuda(sel: torch.Tensor, pts: torch.Tensor,
                     tris: torch.Tensor) -> torch.Tensor:
     """Launch kernel 7 on near_field_ref's contract; sel must lie in
@@ -236,7 +249,7 @@ def near_field_cuda(sel: torch.Tensor, pts: torch.Tensor,
         return out
     if M * K * C == 0:
         return out.zero_()
-    mchunk, splits = _split(B * T * -(-TQ // NEAR_NT), M, 1)
+    mchunk, splits = near_plan(B, T, TQ, M, near_shape())
     partial = torch.empty((B, splits, Qp), dtype=torch.float32,
                           device=pts.device) if splits > 1 else None
     lib, fn = _build.entry('winding_near', 'tuch_winding_near',
