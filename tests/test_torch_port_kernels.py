@@ -728,12 +728,21 @@ def test_scatter_kernel_is_one_kernel_and_no_memset_on_card(cuda_device):
     contrib = torch.randn(64, 6890, 3, device=cuda_device)
     G.scatter_add_rows_cuda(contrib, idx, 6890)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        G.scatter_add_rows_cuda(contrib, idx, 6890)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    # A capture now and then holds the runtime's launch call but loses the
+    # kernel's record (chip_smoke.one_call_work, the same rule): it is taken
+    # again, up to 10 times in all; one without a launch call stands.
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            G.scatter_add_rows_cuda(contrib, idx, 6890)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        launched = [e.name for e in prof.events()
+                    if e.device_type != DeviceType.CUDA
+                    and e.name.startswith(('cudaLaunch', 'cuLaunch'))]
+        if names or not launched:
+            break
     assert len(names) == 1 and 'scatter_add_rows' in names[0], names
 
 
@@ -839,3 +848,162 @@ def test_hier_route_on_card_matches_cpu(cuda_device):
     assert PH.near_field_cuda.launches == before + 1
     want = PH.winding_numbers_hier(verts, cl['cpu'], 4)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The training step (kernels 2, 4, 5 and 6 on a new path)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def train_runtime():
+    """The full synthetic body with every contact asset and the HD
+    surface, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card (the kernels have no CPU mode)')
+    from tuch_tpu_torch import runtime as rt
+    return rt.build_runtime(device='cuda', synthetic=True, with_contact=True,
+                            with_hd=True)
+
+
+def _plain_on_card(monkeypatch):
+    """The contact losses with the plain versions of kernels 2, 4, 5 and 6
+    called directly on CUDA tensors (for a reference only)."""
+    from tuch_tpu_torch.losses import smplify as L
+    from tuch_tpu_torch.ops import segments as S
+
+    class _Gather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, values, idx):
+            ctx.save_for_backward(idx)
+            ctx.num_rows = values.shape[1]
+            return G.gather_rows_ref(values, idx)
+
+        @staticmethod
+        def backward(ctx, ct):
+            idx, = ctx.saved_tensors
+            return G.scatter_add_rows_ref(ct, idx, ctx.num_rows), None
+
+    def tris(points, tris):
+        return PC.winding_numbers(points, tris,
+                                  block_f=min(1024, tris.shape[1]))
+
+    monkeypatch.setattr(CK, 'winding_numbers_faces',
+                        PC.winding_numbers_same_tris)
+    monkeypatch.setattr(S, 'winding_numbers_tris', tris)
+    monkeypatch.setattr(CK, 'masked_min_dist',
+                        lambda v, m, bits=None: PC.masked_min_dist(v, m))
+    monkeypatch.setattr(L, 'gather_rows', _Gather.apply)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [True, False], ids=['hd', 'no_hd'])
+def test_regressor_contact_loss_on_card_matches_plain_versions(
+        train_runtime, monkeypatch, hd):
+    """The contact loss at B=4 on the full posed body through kernels 2
+    (all vertices, the segments and with HD the 1024 offset points), 4 and
+    5, and without HD 6 (with HD the gradient reaches the vertices through
+    the HD points, not the re-gather), against the same loss with their
+    plain versions called on the card: the value at rtol 1e-5, the
+    gradient with respect to the vertices at rtol 1e-4 + atol 1e-5 of its
+    largest entry (kernel 6 sums in another order)."""
+    from tuch_tpu_torch.losses import regressor as R
+    from tuch_tpu_torch.models.smpl import smpl_forward
+    rt = train_runtime
+    rng = np.random.RandomState(5)
+    pose = torch.from_numpy((rng.randn(4, 72) * 0.6).astype(np.float32))
+    with torch.no_grad():
+        verts = smpl_forward(rt.smpl, torch.zeros(4, 10, device='cuda'),
+                             pose[:, 3:].cuda(), pose[:, :3].cuda()).vertices
+    valid = torch.tensor([True, True, False, True], device='cuda')
+
+    def loss_and_grad():
+        v = verts.clone().requires_grad_(True)
+        loss, aux = R.contact_loss(v, rt.contact, valid, 0.02,
+                                   hd=rt.hd if hd else None)
+        grad, = torch.autograd.grad(loss, v)
+        return loss.item(), grad, aux
+
+    counters = [CK.winding_numbers_tris_cuda, CK.masked_min_dist_cuda,
+                G.gather_rows_cuda, G.scatter_add_rows_cuda]
+    before = [c.launches for c in counters]
+    got, g_got, aux = loss_and_grad()
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [3, 1, 1, 0] if hd else [2, 1, 1, 1])
+    assert got > 0 and 0.0 <= float(aux['hd_truncated_frac']) < 1.0
+    with monkeypatch.context() as m:
+        _plain_on_card(m)
+        before = [c.launches for c in counters]
+        want, g_want, _ = loss_and_grad()
+        assert [c.launches for c in counters] == before
+    assert abs(got - want) <= 1e-5 * abs(want)
+    tol = 1e-4 * g_want.abs() + 1e-5 * g_want.abs().max()
+    assert bool(((g_got - g_want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_resnet50_train_step_launch_counts_on_card(cuda_device):
+    """One ResNet-50 step at B=2 (170-vertex body, 64 px, 2 SMPLify
+    iterations, contact and HD on): kernel 2 twice per fit iteration (all
+    vertices, the segments) and three times in the loss (plus the HD
+    points), kernels 4 and 5 once per iteration and once in the loss,
+    kernel 6 once per iteration (the HD loss's gradient does not pass
+    through the re-gather)."""
+    from tuch_tpu_torch import config as cfg
+    from tuch_tpu_torch import runtime as rt
+    from tuch_tpu_torch.train import module as M
+    r = rt.build_runtime(device=cuda_device, synthetic=True, num_verts=170,
+                         with_contact=True, with_hd=True)
+    assets = M.TuchAssets(r.smpl, r.prior, r.contact, r.hd)
+    opts = cfg.TrainConfig(img_res=64, batch_size=2, run_smplify=True,
+                           num_smplify_iters=2, smplify_threshold=1e9)
+    rng = np.random.RandomState(0)
+    P = len(r.contact_classes)
+    batch = {
+        'img': rng.randn(2, 64, 64, 3).astype(np.float32) * 0.1,
+        'keypoints': np.concatenate([rng.uniform(-0.8, 0.8, (2, 49, 2)),
+                                     np.ones((2, 49, 1))], -1).astype(
+            np.float32),
+        'pose': (rng.randn(2, 72) * 0.1).astype(np.float32),
+        'betas': np.zeros((2, 10), np.float32),
+        'contact_vec': (rng.rand(2, P) > 0.6).astype(np.float32),
+        'pose_3d': np.zeros((2, 24, 4), np.float32),
+        'has_smpl': np.array([1.0, 0.0], np.float32),
+        'has_pgt_smpl': np.zeros(2, np.float32),
+        'has_disc_contact': np.array([0.0, 1.0], np.float32),
+        'has_gt_kpts': np.ones(2, np.float32),
+        'has_pose_3d': np.zeros(2, np.float32),
+        'is_flipped': np.array([0.0, 1.0], np.float32),
+        'rot_angle': np.array([10.0, -5.0], np.float32),
+        'fits_index': np.array([3, 1], np.int32)}
+    state = M.init_train_state(r.hmr, torch.zeros(8, 82, device=cuda_device),
+                               opts.lr)
+    counters = [CK.winding_numbers_tris_cuda, CK.masked_min_dist_cuda,
+                G.gather_rows_cuda, G.scatter_add_rows_cuda]
+    before = [c.launches for c in counters]
+    state, metrics, outputs = M.make_train_step(assets, opts)(state, batch)
+    torch.cuda.synchronize()
+    n = opts.num_smplify_iters
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [2 * n + 3, n + 1, n + 1, n]
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert state.step == 1 and state.fits.device.type == 'cuda'
+    acc = outputs['fit_accepted']
+    assert bool(acc.any())
+    written = (state.fits[[3, 1]] != 0).any(dim=1)
+    assert torch.equal(written, acc)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_from_one_seed_match_on_card(cuda_device):
+    from tuch_tpu_torch.models import hmr as H
+    a = H.draw_dropout_masks(
+        8, torch.Generator(device=cuda_device).manual_seed(4), cuda_device)
+    b = H.draw_dropout_masks(
+        8, torch.Generator(device=cuda_device).manual_seed(4), cuda_device)
+    flat_a = [m for pair in a for m in pair]
+    flat_b = [m for pair in b for m in pair]
+    assert all(x.device.type == 'cuda' and x.shape == (8, H.HEAD_WIDTH)
+               for x in flat_a)
+    assert all(torch.equal(x, y) for x, y in zip(flat_a, flat_b))
+    assert 0.4 < torch.stack(flat_a).float().mean().item() < 0.6

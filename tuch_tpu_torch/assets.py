@@ -113,8 +113,8 @@ def synthetic_smpl(num_verts: int = constants.SMPL_NUM_VERTS, seed: int = 0
 
     Draws the same numpy random stream, in the same order, as
     tuch_tpu.assets.synthetic_smpl, so the arrays are bitwise equal. The
-    contact extras of the JAX version are built by synthetic_contact; its
-    HD surface belongs to the training step and is not ported yet.
+    contact extras and the HD surface of the JAX version are built by
+    synthetic_contact.
     """
     rng = np.random.RandomState(seed)
     segs, rings = _sphere_params(num_verts)
@@ -183,11 +183,17 @@ def synthetic_smpl(num_verts: int = constants.SMPL_NUM_VERTS, seed: int = 0
 
 
 class ContactExtras(NamedTuple):
-    """What the self-contact terms need beyond the body model."""
+    """What the self-contact terms need beyond the body model, and the
+    dense (HD) surface of the training step's contact loss in compact
+    barycentric form: HD point h is sum_j hd_bary[h, j] *
+    verts[hd_vert_ids[h, j]], sampled from face hd_geovec[h]."""
     geodists: Optional[np.ndarray]  # (V, V) float32 geodesic distances
     segments: Dict[str, dict]       # name -> {'vidx', 'bands_verts'}
     contact_classes: List[tuple]    # (region_a, region_b) name pairs
     contact_csig: Dict[str, np.ndarray]  # region name -> vertex ids
+    hd_vert_ids: Optional[np.ndarray] = None   # (H, k) int32
+    hd_bary: Optional[np.ndarray] = None       # (H, k) float32
+    hd_geovec: Optional[np.ndarray] = None     # (H,) int32 face ids
 
 
 def synthetic_contact(num_verts: int = constants.SMPL_NUM_VERTS,
@@ -198,10 +204,11 @@ def synthetic_contact(num_verts: int = constants.SMPL_NUM_VERTS,
     geodists is the great-circle distance on the template sphere, a (V, V)
     float32 matrix (~190 MB at full size): with_geodists=False skips it.
     Segments are 9 narrow latitude bands closed by their boundary rings;
-    contact regions are 8 longitude sectors, paired into 12 classes.
+    contact regions are 8 longitude sectors, paired into 12 classes. The HD
+    surface is one point per face, its barycentre (H = F).
     """
     segs, rings = _sphere_params(num_verts)
-    sphere, _ = uv_sphere(segs, rings)
+    sphere, faces = uv_sphere(segs, rings)
 
     geodists = None
     if with_geodists:
@@ -236,8 +243,12 @@ def synthetic_contact(num_verts: int = constants.SMPL_NUM_VERTS,
             for r in range(n_regions)}
     classes = [(f'reg{a}', f'reg{b}')
                for a in range(n_regions) for b in range(a + 1, n_regions)][:12]
+    F = faces.shape[0]
     return ContactExtras(geodists=geodists, segments=segments,
-                         contact_classes=classes, contact_csig=csig)
+                         contact_classes=classes, contact_csig=csig,
+                         hd_vert_ids=faces.astype(np.int32),
+                         hd_bary=np.full((F, 3), 1.0 / 3, np.float32),
+                         hd_geovec=np.arange(F, dtype=np.int32))
 
 
 def synthetic_gmm_prior(num_gaussians: int = 8, dim: int = 69, seed: int = 0):

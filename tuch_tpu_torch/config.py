@@ -1,4 +1,5 @@
-"""Asset paths, contact thresholds and the flag parser of the CLIs.
+"""Asset paths, contact thresholds, run configurations and the flag parser
+of the CLIs.
 
 Counterpart of tuch_tpu/config.py: the same layout under ``data/`` as the
 JAX package and the reference (root overridable with TUCH_DATA_DIR, image
@@ -42,6 +43,7 @@ GEODESICS_SMPL = os.path.join(
     DATA_DIR, 'essentials/geodesics/smpl/smpl_neutral_geodesic_dist.npy')
 SEGMENT_DIR = os.path.join(DATA_DIR, 'essentials/segments/smpl')
 DSC_ROOT = os.path.join(DS_DIR, 'dsc/release')
+HD_MODEL_DIR = os.path.join(DATA_DIR, 'essentials/hd_model/smpl')
 
 # Contact thresholds: vertex pairs geodesically closer than geothres are
 # never contact partners; euclthres is the in-contact distance of training.
@@ -74,6 +76,44 @@ class SMPLifyDemoConfig:
     num_images: int = 4
     # torch device; None = CUDA (raises without a card)
     device: Optional[str] = None
+
+
+@dataclass
+class TrainConfig:
+    """The flags the training step reads (train/module.py), with the JAX
+    package's TrainConfig names and defaults; what only the trainer reads
+    (data, logging, checkpoints, schedule) comes with the trainer."""
+    lr: float = 1e-5
+    batch_size: int = 64
+    img_res: int = 224
+    backbone: str = 'resnet50'
+
+    shape_loss_weight: float = 0.0
+    keypoint_loss_weight: float = 5.0
+    pose_loss_weight: float = 1.0
+    beta_loss_weight: float = 0.01
+    contact_loss_weight: float = 1e-5
+    openpose_train_weight: float = 1.0
+    gt_train_weight: float = 1.0
+
+    run_smplify: bool = False
+    smplify_threshold: float = 100.0
+    num_smplify_iters: int = 10
+    use_contact_in_the_loop: bool = True
+    contact_in_the_loop_loss_weight: float = 2000.0
+    # refresh the in-loop winding test every K iterations (1: every one)
+    smplify_exterior_refresh: int = 1
+    # winding test only at K candidate vertices, in the in-loop fit and the
+    # regressor contact loss (0: all V)
+    contact_candidate_k: int = 0
+    # run the in-loop contact quadratics for at most this many
+    # contact-active samples (0: the whole batch)
+    smplify_contact_capacity: int = 0
+    # the same compaction for the regressor contact loss over valid fits
+    regressor_contact_capacity: int = 0
+    # dense-surface contact in the regressor loss, on hd_k HD points
+    use_hd: bool = True
+    hd_k: int = 1024
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls):

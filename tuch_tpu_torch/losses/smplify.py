@@ -185,6 +185,17 @@ def contact_distances(verts: torch.Tensor, argmin: torch.Tensor
     return zero_safe_norm(verts - gather_rows(verts, argmin))
 
 
+def self_contact_terms(verts: torch.Tensor, assets: ContactAssets,
+                       euclthres: float, candidate_k: int = 0):
+    """Both halves at once: (exterior (B, V) bool, v2v_min (B, V) with
+    gradient, in_contact (B, V) bool), in_contact the vertices whose
+    nearest allowed vertex lies within euclthres."""
+    exterior, argmin = contact_neighbors(verts, assets,
+                                         candidate_k=candidate_k)
+    v2v_min = contact_distances(verts, argmin)
+    return exterior, v2v_min, v2v_min.detach() < euclthres
+
+
 def push_pull_terms(exterior, v2v_min, in_contact):
     """The TUCH push/pull energies per sample (B,): exterior vertices in
     contact are pulled tight, interior vertices pushed out."""

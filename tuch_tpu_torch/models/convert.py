@@ -10,6 +10,11 @@ column order is kept, so the attention layout is unchanged.
 ``{'model': state_dict}`` wrapper) or the JAX package's flat ``.npz`` pytree
 (keys 'params/backbone/...'), the latter with numpy only.
 
+``params_from_jax`` and ``batch_stats_from_jax`` carry the training state
+across by name: a parameter-shaped tree (parameters, gradients, Adam
+moments) and the BatchNorm statistics. The fits store's (N, 82) rows have
+the same layout in both packages.
+
 ``contact_assets_from_numpy`` and ``prior_from_numpy`` carry the fitting
 state across: they take the fields of the JAX package's ContactAssets,
 SegmentTables and GMMPrior as numpy arrays (or the same fields made by
@@ -81,6 +86,19 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
                            'HMR tree')
         sd['.'.join(mod + [name])] = torch.tensor(np.ascontiguousarray(v))
     return sd
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """A tree shaped like the Flax HMR's params (the params, their
+    gradient, an Adam moment), numpy arrays -> a dict under this package's
+    parameter names (HMR.named_parameters), laid out as they are."""
+    return from_jax_variables({'params': tree})
+
+
+def batch_stats_from_jax(stats) -> Dict[str, torch.Tensor]:
+    """The Flax ResNet-50 HMR's batch_stats tree -> its running_mean and
+    running_var buffers by name."""
+    return from_jax_variables({'params': {}, 'batch_stats': stats})
 
 
 def contact_assets_from_numpy(fields: Mapping, segment_tables=None,

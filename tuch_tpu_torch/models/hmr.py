@@ -8,6 +8,12 @@ tuch_tpu/models/torch_ref.py: stride on the 3x3 conv, BatchNorm eps 1e-5
 with running statistics, global mean pooling, and the 3-iteration IEF head
 with no activation. A ViT backbone lives under ``backbone.*``.
 
+train() is the JAX package's HMR(train=True): BatchNorm on the batch's
+statistics with Flax's update of the running ones (BatchNorm2d), and the
+head's two dropouts at rate 0.5 in every IEF iteration, on keep-masks the
+caller passes (draw_dropout_masks draws them from a torch.Generator).
+eval() is the serving graph.
+
 Images come in NHWC, as in the JAX package; the ResNet permutes to NCHW.
 
 Compute dtype (``dtype``, float32 or bfloat16), as the JAX package's HMR:
@@ -26,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tuch_tpu_torch.models import vit as vit_mod
@@ -34,6 +41,10 @@ from tuch_tpu_torch.utils.rotations import rot6d_to_rotmat
 NPOSE = 24 * 6
 N_ITER = 3  # IEF refinement steps
 RESNET50_STAGES = (3, 4, 6, 3)
+HEAD_WIDTH = 1024
+DROPOUT_RATE = 0.5
+# Flax's BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 batch statistic
+BN_MOMENTUM = 0.9
 
 
 class Conv2d(nn.Conv2d):
@@ -44,6 +55,50 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), None)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (eps 1e-5) whose train() mode is Flax's BatchNorm.
+
+    eval() is nn.BatchNorm2d on the running statistics. train() normalises
+    with the batch's statistics and updates the running ones as Flax does:
+    with the biased batch variance E[x²] - E[x]² (floored at 0), where
+    nn.BatchNorm2d takes the unbiased one, and ra = 0.9 ra + 0.1 stat.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            # in float32 at least (a bfloat16 input), as Flax's BatchNorm
+            xf = x.detach().to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0)
+            for buf, stat in ((self.running_mean, mean),
+                              (self.running_var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
+def draw_dropout_masks(B: int, generator=None, device=None):
+    """The IEF head's dropout keep-masks for one forward: N_ITER pairs (after
+    fc1, after fc2) of (B, HEAD_WIDTH) bool, each kept with probability
+    1 - DROPOUT_RATE, drawn from `generator` (a torch.Generator on
+    `device`; None takes the default one)."""
+    keep = 1.0 - DROPOUT_RATE
+    return [tuple(torch.empty(B, HEAD_WIDTH, device=device).bernoulli_(
+        keep, generator=generator).bool() for _ in range(2))
+        for _ in range(N_ITER)]
+
+
+def _dropout(x, keep):
+    """Flax's Dropout on a keep-mask: kept values x / (1 - rate), exact at
+    rate 0.5."""
+    return torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
+
+
 class Bottleneck(nn.Module):
     """ResNet v1.5 bottleneck (1x1 -> 3x3 with the stride -> 1x1, x4)."""
 
@@ -51,16 +106,16 @@ class Bottleneck(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
                             bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
             Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-            nn.BatchNorm2d(planes * 4, eps=1e-5)) if downsample else None
+            BatchNorm2d(planes * 4)) if downsample else None
 
     def forward(self, x):
         out = self.relu(self.bn1(self.conv1(x)))
@@ -93,7 +148,7 @@ class HMR(nn.Module):
         if backbone == 'resnet50':
             # the reference's top-level module names, so its keys load as-is
             self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-            self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+            self.bn1 = BatchNorm2d(64)
             self.relu = nn.ReLU(inplace=True)
             self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
             inplanes = 64
@@ -110,11 +165,11 @@ class HMR(nn.Module):
             raise ValueError(
                 f'unknown backbone {backbone!r}; have resnet50, '
                 f'{sorted(vit_mod.VIT_CONFIGS)}')
-        self.fc1 = nn.Linear(nfeat + NPOSE + 13, 1024)
-        self.fc2 = nn.Linear(1024, 1024)
-        self.decpose = nn.Linear(1024, NPOSE)
-        self.decshape = nn.Linear(1024, 10)
-        self.deccam = nn.Linear(1024, 3)
+        self.fc1 = nn.Linear(nfeat + NPOSE + 13, HEAD_WIDTH)
+        self.fc2 = nn.Linear(HEAD_WIDTH, HEAD_WIDTH)
+        self.decpose = nn.Linear(HEAD_WIDTH, NPOSE)
+        self.decshape = nn.Linear(HEAD_WIDTH, 10)
+        self.deccam = nn.Linear(HEAD_WIDTH, 3)
         for name, value in (('init_pose', mean_pose6d),
                             ('init_shape', mean_shape),
                             ('init_cam', mean_cam)):
@@ -133,16 +188,28 @@ class HMR(nn.Module):
             x = getattr(self, f'layer{i}')(x)
         return x.mean(dim=(2, 3)).float()  # == AvgPool2d(7) at 224
 
-    def forward(self, images):
+    def forward(self, images, dropout=None):
+        """dropout, read in train() only: the head's keep-masks
+        (draw_dropout_masks' layout; None draws them from torch's default
+        generator). eval() has no dropout."""
         xf = self.features(images)
         B = xf.shape[0]
+        masks = None
+        if self.training:
+            masks = (draw_dropout_masks(B, device=xf.device)
+                     if dropout is None else dropout)
         pose = self.init_pose.expand(B, -1)
         shape = self.init_shape.expand(B, -1)
         cam = self.init_cam.expand(B, -1)
-        for _ in range(N_ITER):
-            # linear -> (dropout) -> linear -> (dropout), no activation,
-            # as in the reference regressor head
-            xc = self.fc2(self.fc1(torch.cat([xf, pose, shape, cam], dim=1)))
+        for i in range(N_ITER):
+            # linear -> dropout -> linear -> dropout, no activation, as in
+            # the reference regressor head
+            xc = self.fc1(torch.cat([xf, pose, shape, cam], dim=1))
+            if masks is not None:
+                xc = _dropout(xc, masks[i][0])
+            xc = self.fc2(xc)
+            if masks is not None:
+                xc = _dropout(xc, masks[i][1])
             pose = self.decpose(xc) + pose
             shape = self.decshape(xc) + shape
             cam = self.deccam(xc) + cam

@@ -124,3 +124,10 @@ def smpl_forward(model: SMPL, betas: torch.Tensor, body_pose: torch.Tensor,
     return SMPLOutput(vertices=verts, joints=joints49,
                       joints_smpl=posed_joints)
 
+
+
+def smpl_forward_pose72(model: SMPL, betas: torch.Tensor,
+                        pose: torch.Tensor) -> SMPLOutput:
+    """smpl_forward on 72-dim axis-angle poses (B, 72): global orient
+    first."""
+    return smpl_forward(model, betas, pose[:, 3:], pose[:, :3])

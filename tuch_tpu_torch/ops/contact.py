@@ -9,7 +9,9 @@ triangle or column blocks are reduced as they are formed, so no (Q, F) or
 
 Distances are direct coordinate differences summed as (dx² + dy²) + dz²,
 never the Gram form xx + yy - 2xy: that form cancels at contact distances
-(and torch.cdist switches to it for large inputs).
+(and torch.cdist switches to it for large inputs). The one exception is
+masked_sq_dists_highest, the JAX package's sanctioned Gram form for small
+sets, in full fp32.
 """
 
 import numpy as np
@@ -192,6 +194,28 @@ def region_pair_min_dists(verts: torch.Tensor, idx_a, idx_b, mask_a,
     diff = va - vb
     d2 = _sq_norm(diff[..., 0], diff[..., 1], diff[..., 2])
     return torch.where(torch.stack(banned)[None], float('inf'), d2)
+
+
+def masked_sq_dists_highest(a: torch.Tensor, b: torch.Tensor,
+                            allowed: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) x (..., M, 3) -> (..., N, M) squared distances in the
+    Gram form aa + bb - 2 ab, banned pairs (allowed False) at +inf.
+
+    The one Gram-form distance of the package, for small masked sets (the
+    HD contact loss): its product runs in full fp32, with TF32 off whatever
+    the global flag says. A TF32 product keeps 10 mantissa bits, ~1e-3
+    relative on ab, far above d² at contact distances; in fp32 the
+    cancellation leaves ~1e-7 absolute against the 2e-2 contact threshold.
+    """
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ab = torch.matmul(a, b.transpose(-1, -2))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    d2 = ((a * a).sum(-1)[..., :, None] + (b * b).sum(-1)[..., None, :]
+          - 2.0 * ab)
+    return torch.where(allowed.bool(), d2, float('inf'))
 
 
 def batch_face_normals(triangles: torch.Tensor) -> torch.Tensor:

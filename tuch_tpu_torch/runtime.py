@@ -6,9 +6,10 @@ weights from a seed, replaced by a checkpoint (a reference .pt or the JAX
 package's .npz tree) when one is given. With contact on, the GMM pose
 prior and the contact assets (geodesic mask, faces, region and segment
 tables) are built too and held on the device; serving leaves it off and
-never builds the (V, V) geodesic matrix. ``dtype`` is HMR's compute dtype
-(the JAX runtime's ``compute_dtype``); its weights load as float32 either
-way.
+never builds the (V, V) geodesic matrix. With HD on, the dense surface of
+the training step's contact loss is built too (losses/regressor.HDAssets).
+``dtype`` is HMR's compute dtype (the JAX runtime's ``compute_dtype``); its
+weights load as float32 either way.
 """
 
 import os
@@ -22,6 +23,8 @@ from tuch_tpu_torch import assets as assets_mod
 from tuch_tpu_torch import config as cfg
 from tuch_tpu_torch import constants, resolve_device
 from tuch_tpu_torch.losses.prior import GMMPrior, create_gmm_prior
+from tuch_tpu_torch.losses.regressor import (HDAssets, compact_hd_regressor,
+                                             make_hd_assets_compact)
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models import hmr as hmr_mod
 from tuch_tpu_torch.models.convert import (contact_assets_from_numpy,
@@ -46,6 +49,7 @@ class Runtime(NamedTuple):
     contact: Optional[ContactAssets] = None
     prior: Optional[GMMPrior] = None
     contact_classes: tuple = ()
+    hd: Optional[HDAssets] = None      # with HD only
 
 
 def load_hmr_weights(hmr: hmr_mod.HMR, state_dict) -> None:
@@ -68,10 +72,12 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
                   checkpoint: Optional[str] = None,
                   with_contact: bool = False,
                   with_segments: bool = True,
-                  dtype: str = 'float32') -> Runtime:
-    """Build SMPL and HMR in eval mode on `device` (CUDA by default), and
-    with_contact the GMM prior and the contact assets. HMR computes in
-    `dtype` ('float32' or 'bfloat16', a key of COMPUTE_DTYPES).
+                  dtype: str = 'float32',
+                  with_hd: bool = False) -> Runtime:
+    """Build SMPL and HMR in eval mode on `device` (CUDA by default);
+    with_contact adds the GMM prior and the contact assets, with_hd the HD
+    surface. HMR computes in `dtype` ('float32' or 'bfloat16', a key of
+    COMPUTE_DTYPES).
 
     synthetic=None picks the real assets when SMPL_NEUTRAL.pkl exists and
     says which it picked. The synthetic body, its contact extras and prior,
@@ -88,12 +94,16 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
               f'{"SYNTHETIC stand-in" if synthetic else "real"} assets '
               f'({neutral} {"missing" if synthetic else "found"})',
               flush=True)
-    extras = gmm = None
+    extras = gmm = hd_compact = None
     if synthetic:
         nv = num_verts or constants.SMPL_NUM_VERTS
         smpl_model, means = assets_mod.synthetic_smpl(num_verts=nv)
+        if with_contact or with_hd:
+            extras = assets_mod.synthetic_contact(
+                nv, with_geodists=with_contact)
+            hd_compact = (extras.hd_vert_ids, extras.hd_bary,
+                          extras.hd_geovec)
         if with_contact:
-            extras = assets_mod.synthetic_contact(nv)
             gmm = assets_mod.synthetic_gmm_prior()
     else:
         smpl_model = assets_mod.load_smpl_pkl(os.path.join(
@@ -106,14 +116,18 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
             extras = _load_real_contact(with_segments)
             gmm = assets_mod.load_gmm_prior(os.path.join(
                 cfg.PRIOR_FOLDER, 'gmm_08.pkl'))
+        if with_hd:
+            hd_compact = _load_real_hd()
 
     hmr = hmr_mod.create_hmr(*means, backbone=backbone,
                              dtype=COMPUTE_DTYPES[dtype])
     hmr_mod.init_weights(hmr)
     if checkpoint:
         load_hmr_weights(hmr, load_checkpoint(checkpoint))
+    hd = None if hd_compact is None else make_hd_assets_compact(
+        *hd_compact, smpl_model.faces, device=dev)
     runtime = Runtime(smpl=SMPL(smpl_model).to(dev).eval(),
-                      hmr=hmr.to(dev).eval())
+                      hmr=hmr.to(dev).eval(), hd=hd)
     if not with_contact:
         return runtime
 
@@ -148,6 +162,20 @@ def _load_real_contact(with_segments: bool) -> assets_mod.ContactExtras:
     return assets_mod.ContactExtras(
         geodists=np.load(cfg.GEODESICS_SMPL), segments=segments or {},
         contact_classes=list(classes), contact_csig=csig)
+
+
+def _load_real_hd():
+    """The real HD surface, (vert_ids, bary, geovec): the (H, V) upsampling
+    regressor compacted to 4 weights a point, and the face each point
+    samples from. As in the JAX runtime, a missing file raises."""
+    hd_reg = np.load(os.path.join(cfg.HD_MODEL_DIR,
+                                  'smpl_neutral_hd_vert_regressor.npy'))
+    with open(os.path.join(cfg.HD_MODEL_DIR,
+                           'smpl_neutral_hd_sample_from_mesh_out.pkl'),
+              'rb') as f:
+        geovec = np.asarray(pickle.load(f)['faces_vert_is_sampled_from'])
+    order, bary = compact_hd_regressor(hd_reg, k=4)
+    return order, bary, geovec
 
 
 def _load_real_segments():

@@ -119,3 +119,31 @@ def quat_to_aa(quat: torch.Tensor) -> torch.Tensor:
 def rotmat_to_aa(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrices (..., 3, 3) -> axis-angle (..., 3)."""
     return quat_to_aa(rotmat_to_quat(R))
+
+
+def rot_z_deg(deg: torch.Tensor) -> torch.Tensor:
+    """Rotation about +z by -deg degrees, (...) -> (..., 3, 3): a crop
+    rotated by rot degrees rotates the global orientation by R_z(-rot)."""
+    rad = -torch.deg2rad(deg)
+    c, s = torch.cos(rad), torch.sin(rad)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, z], dim=-1),
+                        torch.stack([s, c, z], dim=-1),
+                        torch.stack([z, z, o], dim=-1)], dim=-2)
+
+
+def rot_aa(aa: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """Rotate axis-angle global orientations (..., 3) by deg image degrees
+    (broadcastable to aa.shape[:-1])."""
+    return rotmat_to_aa(rot_z_deg(deg) @ batch_rodrigues(aa))
+
+
+def flip_pose(pose: torch.Tensor, flip_perm) -> torch.Tensor:
+    """Flip SMPL poses (..., 72) left <-> right: permute the joints by
+    flip_perm (constants.SMPL_POSE_FLIP_PERM) and negate the y and z
+    axis-angle components."""
+    pose = pose[..., torch.as_tensor(flip_perm, device=pose.device)]
+    sign = torch.ones(pose.shape[-1], dtype=pose.dtype, device=pose.device)
+    sign[1::3] = -1.0
+    sign[2::3] = -1.0
+    return pose * sign
