@@ -27,7 +27,13 @@ exit, no result line) if any check fails:
              weights and image, and the card's bf16 vertices against the
              card's fp32 ones (within BF16_VERTEX_ATOL), for both backbones;
   6. times   B=1 forward latency and B=64 images/s for both backbones in
-             both dtypes, each with a torch.profiler breakdown.
+             both dtypes, each with a torch.profiler breakdown;
+ 6b. options ResNet-50 with --bn_fold and with stem_s2d (the plain stem
+             here: the stock model under another flag) against the
+             stock model on random BatchNorm statistics: vertices at B=8
+             (TF32 off, HMR_OPTION_ATOL), --bn_fold's B=64 forward time
+             (CUDA events) and device kernels beside the stock model's in
+             fp32 and bf16, and one /predict through cli/serve --bn_fold.
 
 and the SMPLify-DC slice, on the same body with every contact asset:
 
@@ -84,16 +90,43 @@ contact losses are live:
              its parts, a torch.profiler breakdown of one step and the
              peak memory.
 
-Weights and bodies are random from fixed seeds. The last two lines of
+and the training and evaluation entry points, run in this process with
+the flags a user types:
+
+ 13. train   cli/train --synthetic --run_smplify --batch_size 64
+             --num_epochs 1 --val_and_checkpoint_freq 0.5 --num_workers 8
+             on the full body at 224 px (256 samples, 4 steps, validation
+             and a checkpoint at steps 2 and 4), on an instrumented Trainer
+             (loader wait, step_fn, validation and checkpoint times): A,
+             ResNet-50, each step's launches as phase 12's, finite losses,
+             a metrics line per step, 2 checkpoints and the fits files; B,
+             A again (the card's run-to-run noise); C, A resumed from its
+             step-2 checkpoint: each part of its state (parameters, Adam's
+             moments, fits) within RESUME_BAR of A's, the loss of its steps
+             3-4 at TRAIN_LOSS_RTOL; D, ViT-S/16 with
+             --compute_dtype bfloat16, 2 steps then the time-budget exit,
+             kernel 1's bf16 launches counted. Each run's counts are set to
+             0 before it and read after it.
+ 14. eval    cli/eval --synthetic --synthetic_samples 256 --batch_size 64
+             on run A's last checkpoint, with and without --bn_fold (the
+             reports within EVAL_BN_FOLD_MM, images/s), and 8 samples on
+             the card and on the CPU (per-sample errors within VERTEX_TOL).
+
+`python3 chip_smoke.py --trainer` runs phases 1, 6b, 12 (ResNet-50 times),
+13 and 14 alone (~2.5 minutes, against the whole smoke's ~9) and prints no
+result lines. Weights and bodies are random from fixed seeds. The last two lines of
 standard output are the kernel summary and {"ok": true, "device": {...}} as
 JSON; the line before them is the card's name and power limit from
 nvidia-smi.
 """
 
+import argparse
 import base64
 import copy
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -161,6 +194,24 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5   # atol x each tensor's max
 VERTEX_TOL = 1e-3                # fits rows and opt_vertices
 TRAIN_FITS = 256                 # rows of the B=64 fits store
 TRAIN_TIMED = 5                  # timed steps after 2 warm-up and 1 counted
+
+# ResNet-50's serving options (phase 6b): vertices of --bn_fold and
+# stem_s2d against the stock model, fp32, TF32 off, metres: the bar of
+# tests/test_torch_port_hmr_options.py (the JAX package's fold bar)
+HMR_OPTION_ATOL = 2e-4
+# the trainer (phase 13): run logs and checkpoints (gitignored)
+TRAIN_LOG_DIR = os.path.join('build', 'chip_smoke_train')
+# a resume (run C) against the straight run (A), per part: max abs relative
+# to each tensor's largest. Kernel 6's float atomics and cuDNN's backward
+# are not bitwise deterministic, so two runs differ in two modes: on an H100
+# (80GB HBM3, 700 W; tools/resume_noise.py and phase 13, 26 runs of A
+# again or resumed) the parameters read 0 or 3.513e-3 (one Adam update of
+# about lr on one element, flipped), Adam's mu 0 or 1.274e-3, nu 0 or
+# 1.339e-3, the fits 6.8e-8 to 8.3e-6. Each bar is 4x the largest reading
+# (rounded up); a resume that lost Adam's moments, the fits or the dropout
+# generator moves its part by O(1).
+RESUME_BAR = {'params': 1.5e-2, 'mu': 6e-3, 'nu': 6e-3, 'fits': 4e-5}
+EVAL_BN_FOLD_MM = 0.01           # cli/eval report, --bn_fold against not
 
 # torch.profiler: the runtime calls that launch a kernel (by prefix), and
 # the one-call captures taken before one that lost its kernel's record
@@ -1609,7 +1660,7 @@ def phase_train_times(runtime, backbone, card, results):
     if busy <= 0:
         print(f'[profile train {backbone}] the profiler recorded no device '
               'time', flush=True)
-        return
+        return np.median(lat)
     host, dev, by_order = step_split(prof)
     hmr_ms = dev.get('hmr_forward', 0.0) + dev.get('backward', 0.0)
     print(f'[profile train {backbone}] one step: host wall {wall:.3f} ms, '
@@ -1629,9 +1680,534 @@ def phase_train_times(runtime, backbone, card, results):
     for name, ms, calls in top:
         print(f'[profile train {backbone}]   {ms:8.3f} ms {ms / busy:6.1%} '
               f'x{calls:<4d} {name}', flush=True)
+    return np.median(lat)
+
+# ---------------------------------------------------------------------------
+# ResNet-50's serving options (phase 6b): --bn_fold and stem_s2d
+# ---------------------------------------------------------------------------
+
+def _randomize_bn(hmr, seed):
+    """Non-trivial BatchNorm affines and statistics from a seed, in place
+    (a fresh model's fold to almost nothing)."""
+    from tuch_tpu_torch.models.hmr import BatchNorm2d
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in hmr.modules():
+            if isinstance(mod, BatchNorm2d):
+                n = mod.weight.shape
+                for t, v in ((mod.weight, torch.randn(n, generator=g) * 0.3
+                              + 1.0),
+                             (mod.bias, torch.randn(n, generator=g) * 0.3),
+                             (mod.running_mean,
+                              torch.randn(n, generator=g) * 0.3),
+                             (mod.running_var,
+                              torch.rand(n, generator=g) * 1.8 + 0.2)):
+                    t.copy_(v)
+    return hmr
 
 
-def main() -> int:
+def kernel_count(prof):
+    """Device kernels in a profile (record_function ranges left out)."""
+    from torch.autograd import DeviceType
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith('train_step.'))
+
+
+def phase_hmr_options(card):
+    """ResNet-50 with --bn_fold and with stem_s2d against the stock model,
+    on weights whose BatchNorm affines and statistics are random: vertices
+    at B=8 with TF32 off (HMR_OPTION_ATOL; stem_s2d builds the plain stem:
+    the stock model under another flag), then with the TF32 defaults
+    --bn_fold's B=64 forward device time (CUDA events) and device kernels
+    (torch.profiler) beside the stock model's, in fp32 and bf16 (the
+    serving predictor's weights, cast once); then one /predict through
+    cli/serve --bn_fold."""
+    from tuch_tpu_torch import runtime as rt
+    from tuch_tpu_torch.models import hmr as H
+    from tuch_tpu_torch.models.smpl import smpl_forward
+    base = rt.build_runtime(device=DEV, synthetic=True)
+    stock_sd = _randomize_bn(base.hmr, 3).state_dict()
+    means = [b.cpu() for b in (base.hmr.init_pose, base.hmr.init_shape,
+                               base.hmr.init_cam)]
+
+    def variant(fold, s2d, dtype):
+        hmr = H.create_hmr(*means, dtype=dtype, stem_s2d=s2d).to(DEV)
+        hmr.load_state_dict(stock_sd)
+        hmr = H.folded(hmr) if fold else hmr.eval()
+        return H.store_compute_weights(hmr)
+
+    names = {(False, False): 'stock', (True, False): 'bn_fold',
+             (False, True): 'stem_s2d'}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x8 = torch.as_tensor(np.random.RandomState(5).randn(8, 224, 224, 3)
+                         .astype(np.float32), device=DEV)
+
+    def verts(hmr):
+        with torch.inference_mode():
+            rotmat, betas, _ = hmr(x8)
+            return smpl_forward(base.smpl, betas, rotmat[:, 1:],
+                                rotmat[:, :1], pose2rot=False).vertices
+    try:
+        want = verts(variant(False, False, torch.float32))
+        for key, name in names.items():
+            if key == (False, False):
+                continue
+            err = float((verts(variant(*key, torch.float32)) - want)
+                        .abs().max())
+            print(f'[hmr options] {name} vs stock, fp32, TF32 off, B=8 at '
+                  f'224 px: vertices max abs diff {err:.3g} m (bar '
+                  f'{HMR_OPTION_ATOL})', flush=True)
+            check(err <= HMR_OPTION_ATOL, f'{name}: vertices off by {err}')
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    x = torch.randn(64, 224, 224, 3, device=DEV)
+    for dtype in (torch.float32, torch.bfloat16):
+        for key in ((False, False), (True, False)):
+            name, hmr = names[key], variant(*key, dtype)
+
+            def fwd():
+                with torch.inference_mode():
+                    hmr(x)
+            ms = cuda_ms(fwd, iters=10, warmup=3)
+            wall, prof = profiled(fwd)
+            busy, _ = kernel_rows(prof, top=1)
+            print(f'[times hmr options] ResNet-50 {name} '
+                  f'{str(dtype)[6:]} B=64 at 224 px: {ms:.3f} ms per '
+                  f'forward (CUDA events, mean of 10), {64e3 / ms:.1f} '
+                  f'images/s; one profiled forward: device busy '
+                  f'{busy:.3f} ms in {kernel_count(prof)} device kernels, '
+                  f'host wall {wall:.3f} ms; TF32 cuDNN '
+                  f'{torch.backends.cudnn.allow_tf32}; card: {card}',
+                  flush=True)
+            del hmr
+    from tuch_tpu_torch.cli.serve import build_server
+    httpd = build_server(SimpleNamespace(
+        checkpoint=None, synthetic=True, img_res=224,
+        synthetic_num_verts=None, max_batch=1, batch_wait_ms=2.0,
+        backbone='resnet50', device=DEV, dtype='float32', host='127.0.0.1',
+        port=0, bn_fold=True))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        check(httpd.predictor.hmr.bn_fold, 'serve --bn_fold: not folded')
+        code, body = _http(
+            f'http://127.0.0.1:{httpd.server_address[1]}/predict',
+            {'image_b64': _png_b64(11), 'return_vertices': True})
+        _check_prediction(code, body, httpd.predictor.num_verts,
+                          'serve --bn_fold')
+        print('[serve resnet50 --bn_fold] one /predict answered 200 with '
+              f'{len(body["vertices"])} finite vertices', flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.predictor.close()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), 'server thread did not stop')
+
+
+# ---------------------------------------------------------------------------
+# The trainer and eval entry points (phases 13 and 14)
+# ---------------------------------------------------------------------------
+
+def train_argv(name, *flags):
+    """cli/train's flags for a run of phase 13: the synthetic mix at full
+    width, B=64, one epoch of 256 samples (4 steps), validation and a
+    checkpoint every half epoch, 8 loader workers."""
+    return ['--synthetic', '--run_smplify', '--batch_size', str(TRAIN_B),
+            '--num_epochs', '1', '--val_and_checkpoint_freq', '0.5',
+            '--num_workers', '8', '--log_dir', TRAIN_LOG_DIR, '--name', name,
+            *flags]
+
+
+def instrument(tr, counters, stop_after=None):
+    """Record one Trainer's loop through its instance attributes (the
+    trainer's code is unchanged): the host time waiting on the loader and
+    the arrival of each batch; per step the host ms in step_fn, CUDA
+    events around it, whether the card was already idle when it returned
+    (the step synchronised inside), and each kernel's launches;
+    validation and checkpoint ms and bytes, with the step they followed.
+    stop_after: after that many steps, the time-budget exit."""
+    rec = dict(wait=[], arrive=[], step_ms=[], events=[], idle_at_return=[],
+               launches=[], val=[], ckpt=[])
+    epoch_iter = tr.loader.epoch_iter
+
+    def timed_iter(state):
+        it = epoch_iter(state)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    rec['arrive'].append(time.perf_counter())
+                    return
+                t1 = time.perf_counter()
+                rec['wait'].append(1e3 * (t1 - t0))
+                rec['arrive'].append(t1)
+                yield batch
+        finally:
+            it.close()
+
+    step_fn, validate, save = tr.step_fn, tr.validate, tr._save_checkpoint
+
+    def step(state, batch):
+        before = {k: c.launches for k, c in counters.items()}
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        rec['step_ms'].append(1e3 * (time.perf_counter() - t0))
+        e1.record()
+        rec['idle_at_return'].append(e1.query())
+        rec['events'].append((e0, e1))
+        rec['launches'].append({k: c.launches - before[k]
+                                for k, c in counters.items()})
+        if stop_after is not None and len(rec['step_ms']) == stop_after:
+            tr.endtime = 0.0
+        return out
+
+    def timed_validate(n):
+        t0 = time.perf_counter()
+        out = validate(n)
+        rec['val'].append((len(rec['step_ms']),
+                           1e3 * (time.perf_counter() - t0)))
+        return out
+
+    def timed_save(*args):
+        t0 = time.perf_counter()
+        save(*args)
+        ms = 1e3 * (time.perf_counter() - t0)
+        path = tr.ckpt.latest()
+        nbytes = os.path.getsize(path) + sum(
+            os.path.getsize(os.path.join(tr.options.checkpoint_dir, f))
+            for f in os.listdir(tr.options.checkpoint_dir)
+            if f.endswith('_fits.npy'))
+        rec['ckpt'].append((len(rec['step_ms']), ms, nbytes, path))
+
+    tr.loader.epoch_iter = timed_iter
+    tr.step_fn, tr.validate, tr._save_checkpoint = step, timed_validate, \
+        timed_save
+    return rec
+
+
+def iteration_ms(rec):
+    """Per step, the loop's ms from its batch's arrival to the next one's
+    (or the end of the epoch), less the validation and checkpoint it ran:
+    step_fn, the previous step's metrics and the wait on the loader."""
+    out = []
+    for k in range(1, len(rec['arrive'])):
+        extra = sum(ms for s, ms in rec['val'] if s == k) + sum(
+            c[1] for c in rec['ckpt'] if c[0] == k)
+        out.append(1e3 * (rec['arrive'][k] - rec['arrive'][k - 1]) - extra)
+    return out
+
+
+def train_run(name, backbone, runtime, hmr, counters, *flags,
+              stop_after=None):
+    """One cli/train run (build with the given runtime and a fresh HMR,
+    then fit), instrumented; returns (trainer, record, launches of the
+    whole run)."""
+    from tuch_tpu_torch import config as cfgmod
+    from tuch_tpu_torch.cli import train as train_cli
+    opts = cfgmod.parse_config(cfgmod.TrainConfig, train_argv(
+        name, '--backbone', backbone, *flags))
+    tr = train_cli.build(opts, runtime._replace(hmr=hmr))
+    rec = instrument(tr, counters, stop_after)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0                   # this run's main path starts here
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    total = {k: c.launches for k, c in counters.items()}  # ... and ends
+    rec['fit_s'] = time.perf_counter() - t0
+    tr.close()
+    return tr, rec, total
+
+
+def _train_records(tr):
+    with open(os.path.join(tr.options.summary_dir, 'metrics.jsonl')) as f:
+        recs = [json.loads(x) for x in f]
+    return {r['step']: r for r in recs if 'train/loss' in r}, \
+        [r for r in recs if any(k.startswith('val/') for k in r)]
+
+
+def _state_tensors(tr):
+    s = tr.state
+    return {'params': dict(s.hmr.named_parameters()), 'mu': s.opt.mu,
+            'nu': s.opt.nu, 'fits': {'fits': s.fits}}
+
+
+def _distance(a, b):
+    """Per part (params, mu, nu, fits): the max over its tensors of max
+    |a - b| / max |b| (the plain max |a - b| for a zero tensor), and
+    whether every tensor is equal bit for bit."""
+    dist, equal = {}, True
+    for part in b:
+        dist[part] = 0.0
+        for k, v in b[part].items():
+            w = a[part][k].detach()
+            v = v.detach()
+            equal &= bool(torch.equal(w, v))
+            scale = float(v.abs().max())
+            d = float((w - v).abs().max())
+            dist[part] = max(dist[part], d / scale if scale > 0 else d)
+    return dist, equal
+
+
+def _loss_gaps(got, want, steps):
+    """The largest relative difference of two runs' logged losses over
+    `steps`: of the step's loss, and of its components (with the name)."""
+    total, comp, name = 0.0, 0.0, ''
+    for s in steps:
+        for k, w in want[s].items():
+            if not k.startswith('train/loss'):
+                continue
+            gap = abs(got[s][k] - w) / max(abs(w), 1e-30)
+            if k == 'train/loss':
+                total = max(total, gap)
+            elif gap >= comp:
+                comp, name = gap, k[len('train/'):]
+    return total, comp, name
+
+
+def phase_train_loop(runtime, card, bare_ms):
+    """cli/train at full width on the card, in this process, with the
+    flags a user types (train_argv): runs A, B (A again: the card's
+    run-to-run noise), C (A resumed from its step-2 checkpoint) with
+    ResNet-50, and D (ViT-S/16, --compute_dtype bfloat16, 2 steps, then
+    the time-budget exit). Each run drives the port's main path with every
+    count set to 0 before it and read after it."""
+    from tuch_tpu_torch import runtime as rt
+    shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
+    counters = train_counters()
+    iters = 10                            # TrainConfig.num_smplify_iters
+
+    def fresh_hmr(backbone, dtype='float32'):
+        return rt.build_runtime(device=DEV, synthetic=True,
+                                backbone=backbone, dtype=dtype).hmr
+
+    per_step = train_launches('resnet50', iters)
+    torch.cuda.reset_peak_memory_stats()
+    A, rec_a, total_a = train_run('A', 'resnet50', runtime,
+                                  fresh_hmr('resnet50'), counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(rec_a['step_ms'])
+    check(steps == 4 and A.state.step == 4, f'run A took {steps} steps')
+    for i, got in enumerate(rec_a['launches'], 1):
+        check(got == per_step, f'run A step {i} launches {got} != '
+              f'{per_step}')
+    check(total_a == {k: 4 * v for k, v in per_step.items()},
+          f'run A launches {total_a}')
+    recs_a, vals_a = _train_records(A)
+    check(sorted(recs_a) == [1, 2, 3, 4], f'metrics lines {sorted(recs_a)}')
+    check(all(np.isfinite(v) for r in recs_a.values() for k, v in r.items()
+              if k.startswith('train/loss')), 'run A: a non-finite loss')
+    check(len(vals_a) == 2, f'run A validated {len(vals_a)} times')
+    ckpts = A.ckpt.list_checkpoints()
+    check(len(ckpts) == 2 and '_step2_' in ckpts[0] and '_step4_' in
+          ckpts[1], f'run A checkpoints {ckpts}')
+    for ds in A.fits_layout.offsets:
+        check(os.path.isfile(os.path.join(A.options.checkpoint_dir,
+                                          f'{ds}_fits.npy')),
+              f'no {ds}_fits.npy')
+    it_a = iteration_ms(rec_a)
+    print(f'[train A] cli/train ResNet-50 B={TRAIN_B} at 224 px, 4 steps '
+          f'(256 synthetic samples, 8 loader workers, 10 fit iterations, '
+          f'HD contact loss): launches per step {rec_a["launches"][0]}, '
+          f'all 4 as phase 12 counts; losses '
+          f'{[round(recs_a[s]["train/loss"], 6) for s in range(1, 5)]}; '
+          f'val {[[round(x, 3) for x in v.values()] for v in vals_a]} '
+          f'mm; checkpoints {[os.path.basename(c) for c in ckpts]}',
+          flush=True)
+    print(f'[times train A] ms per trainer step (loop iteration: step_fn, '
+          f'logging, loader wait; median of steps 2-4) '
+          f'{np.median(it_a[1:4]):.3f} (all {[round(x, 3) for x in it_a]}) '
+          f'beside phase 12\'s bare step_fn {bare_ms:.3f}; step_fn host ms '
+          f'{[round(x, 3) for x in rec_a["step_ms"]]}; card idle when '
+          f'step_fn returned: {rec_a["idle_at_return"]}; loader wait ms per '
+          f'step {[round(x, 3) for x in rec_a["wait"]]}; validation ms '
+          f'{[round(v[1], 3) for v in rec_a["val"]]} (256 samples, B=64); '
+          f'checkpoint write ms {[round(c[1], 3) for c in rec_a["ckpt"]]} '
+          f'of {[c[2] for c in rec_a["ckpt"]]} bytes; fit {rec_a["fit_s"]:.2f}'
+          f' s; peak memory {peak:.3f} GiB (max_memory_allocated); TF32 '
+          f'cuDNN {torch.backends.cudnn.allow_tf32}; card: {card}',
+          flush=True)
+
+    B, rec_b, _ = train_run('B', 'resnet50', runtime, fresh_hmr('resnet50'),
+                            counters)
+    C, rec_c, total_c = train_run(
+        'C', 'resnet50', runtime, fresh_hmr('resnet50'), counters,
+        '--resume', '--checkpoint', ckpts[0])
+    check(len(rec_c['step_ms']) == 2 and C.state.step == 4,
+          f'run C took {len(rec_c["step_ms"])} steps to step {C.state.step}')
+    check(total_c == {k: 2 * v for k, v in per_step.items()},
+          f'run C launches {total_c}')
+    want = _state_tensors(A)
+    parts_b, eq_b = _distance(_state_tensors(B), want)
+    parts_c, eq_c = _distance(_state_tensors(C), want)
+    recs_b, _ = _train_records(B)
+    recs_c, _ = _train_records(C)
+    # B measures the card's noise; C must continue A: its steps' losses
+    loss_b = _loss_gaps(recs_b, recs_a, (1, 2, 3, 4))
+    loss_c = _loss_gaps(recs_c, recs_a, (3, 4))
+    # what no noise touches: Adam's count and the dropout generator (its
+    # draws do not depend on the data)
+    same_count = C.state.opt.count == A.state.opt.count
+    same_gen = torch.equal(C.state.generator.get_state(),
+                           A.state.generator.get_state())
+
+    def fmt(parts):
+        return ', '.join(f'{k} {v:.4g}' for k, v in parts.items())
+    print(f'[train B, C] parameters, fits and Adam moments, max abs '
+          f'relative to each tensor\'s largest: B from A ({fmt(parts_b)}; '
+          f'bit for bit: {eq_b}), C (resumed from A\'s step 2) from A '
+          f'({fmt(parts_c)}; bit for bit: {eq_c}), bars ({fmt(RESUME_BAR)}); '
+          f'C\'s Adam count and dropout generator equal A\'s: {same_count}, '
+          f'{same_gen}; loss, largest component apart (relative): B from A '
+          f'{loss_b[0]:.3g}, {loss_b[1]:.3g} ({loss_b[2]}); C\'s steps 3-4 '
+          f'from A\'s {loss_c[0]:.3g} (bar {TRAIN_LOSS_RTOL}), '
+          f'{loss_c[1]:.3g} ({loss_c[2]})', flush=True)
+    check(loss_c[0] <= TRAIN_LOSS_RTOL,
+          f'C\'s loss lies {loss_c[0]} from A\'s')
+    check(same_count and same_gen,
+          'C\'s Adam count or dropout generator differs from A\'s')
+    for part, bar in RESUME_BAR.items():
+        check(parts_c[part] <= bar, f'C\'s {part} lie {parts_c[part]} '
+              f'from A\'s, over the bar {bar}')
+
+    mha_per_forward = VIT_S16_DEPTH
+    D, rec_d, total_d = train_run(
+        'D', 'vit_s16', runtime, fresh_hmr('vit_s16', 'bfloat16'), counters,
+        '--compute_dtype', 'bfloat16', stop_after=2)
+    per_step_d = train_launches('vit_s16', iters)
+    val_batches = len(D.val_ds) // TRAIN_B
+    want_d = {k: 2 * v for k, v in per_step_d.items()}
+    want_d['mha'] += val_batches * mha_per_forward
+    recs_d, _ = _train_records(D)
+    check(D.state.step == 2 and sorted(recs_d) == [1, 2],
+          f'run D: {D.state.step} steps, metrics {sorted(recs_d)}')
+    check(all(np.isfinite(v) for r in recs_d.values() for k, v in r.items()
+              if k.startswith('train/loss')), 'run D: a non-finite loss')
+    check(total_d == want_d, f'run D launches {total_d} != {want_d}')
+    e0, e1 = rec_d['events'][1]
+    print(f'[train D] cli/train ViT-S/16 --compute_dtype bfloat16, B='
+          f'{TRAIN_B}: 2 steps, validation and a checkpoint at step 2, then '
+          f'the time-budget exit; launches {total_d} (kernel 1 in bf16: '
+          f'{mha_per_forward} per forward, 2 training forwards and '
+          f'{val_batches} validation batches); losses '
+          f'{[round(recs_d[s]["train/loss"], 6) for s in (1, 2)]}',
+          flush=True)
+    print(f'[times train D] bf16 step 2: step_fn host '
+          f'{rec_d["step_ms"][1]:.3f} ms, CUDA events around it '
+          f'{e0.elapsed_time(e1):.3f} ms, card idle at return '
+          f'{rec_d["idle_at_return"][1]}; step 1 (first bf16 step of the '
+          f'process) {rec_d["step_ms"][0]:.3f} ms; loader wait '
+          f'{[round(x, 3) for x in rec_d["wait"]]} ms; validation '
+          f'{[round(v[1], 3) for v in rec_d["val"]]} ms; checkpoint '
+          f'{[round(c[1], 3) for c in rec_d["ckpt"]]} ms of '
+          f'{[c[2] for c in rec_d["ckpt"]]} bytes; card: {card}', flush=True)
+    launches_per = {'train step': per_step, 'eval batch (ViT-S/16)':
+                    {'mha': mha_per_forward}}
+    print(f'[train] kernel launches {launches_per}', flush=True)
+    return ckpts[-1]
+
+
+def _eval_main(argv, device=DEV):
+    from tuch_tpu_torch.cli import eval as eval_cli
+    return eval_cli.main(argv + ['--device', device])
+
+
+def phase_eval(checkpoint, card):
+    """cli/eval --synthetic on the weights of run A's last checkpoint
+    (--checkpoint): 8 samples on the card and on the CPU (TF32 off), each
+    sample's errors within VERTEX_TOL (and the pipeline warm); then 256
+    samples at B=64 with and without --bn_fold: the reports within
+    EVAL_BN_FOLD_MM, and images/s (run_evaluation's wall time: loader,
+    forward, metrics)."""
+    from tuch_tpu_torch.eval import evaluate as EV
+    argv = ['--synthetic', '--checkpoint', checkpoint, '--log_freq', '1000',
+            '--dataset', '3dpw']
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev in (DEV, 'cpu'):
+            _eval_main(argv + ['--synthetic_samples', '8', '--batch_size',
+                               '8', '--result_file', f'eval8_{dev}.npz'],
+                       dev)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    card8, cpu8 = (np.load(os.path.join('out', f'eval8_{d}.npz'))
+                   for d in (DEV, 'cpu'))
+    errs = {k: float(np.abs(card8[k] - cpu8[k]).max())
+            for k in ('mpjpe', 'recon_err')}
+    print(f'[parity eval] 8 samples, card against CPU (TF32 off), max abs '
+          f'per-sample difference (m): {errs} (bar {VERTEX_TOL})',
+          flush=True)
+    check(all(v <= VERTEX_TOL for v in errs.values()),
+          f'eval card vs CPU {errs}')
+    run_evaluation = EV.run_evaluation
+    reports = {}
+    for fold in (False, True):
+        seconds = []
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = run_evaluation(*a, **kw)
+            seconds.append(time.perf_counter() - t0)
+            return out
+        EV.run_evaluation = timed
+        try:
+            reports[fold] = _eval_main(argv + [
+                '--synthetic_samples', '256', '--batch_size', str(TRAIN_B)]
+                + (['--bn_fold'] if fold else []))
+        finally:
+            EV.run_evaluation = run_evaluation
+        print(f'[times eval{" --bn_fold" if fold else ""}] cli/eval '
+              f'--synthetic 256 samples at B={TRAIN_B}, ResNet-50 (run A\'s '
+              f'checkpoint): {256 / seconds[0]:.1f} images/s '
+              f'(run_evaluation {1e3 * seconds[0]:.3f} ms with its loader); '
+              f'report {reports[fold]}; TF32 cuDNN '
+              f'{torch.backends.cudnn.allow_tf32}; card: {card}', flush=True)
+    for k in ('mpjpe', 'pa_mpjpe'):
+        d = abs(reports[True][k] - reports[False][k])
+        check(d <= EVAL_BN_FOLD_MM, f'--bn_fold moves {k} by {d} mm')
+
+
+def trainer_phases(card):
+    """Phases 1, 6b, 12's ResNet-50 times, 13 and 14 alone, with their
+    checks; no result lines."""
+    from tuch_tpu_torch import runtime as rt
+    t0 = time.perf_counter()
+    phase_build()
+    fit_rt = rt.build_runtime(device=DEV, synthetic=True,
+                              with_contact=True, with_hd=True)
+    phase_hmr_options(card)
+    bare = phase_train_times(fit_rt, 'resnet50', card,
+                             {'winding': {'max_abs_err': 0.0}})
+    checkpoint = phase_train_loop(fit_rt, card, bare)
+    phase_eval(checkpoint, card)
+    shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
+    print(f'chip_smoke --trainer: every check passed in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description='Chip smoke of tuch_tpu_torch '
+                                'on one CUDA card (see the module doc).')
+    p.add_argument('--trainer', action='store_true',
+                   help='phases 1, 6b, 12 (ResNet-50 times), 13 and 14 '
+                        'alone, with no result lines')
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
@@ -1640,6 +2216,8 @@ def main() -> int:
     kinds = torch.cuda.get_device_name(0)
     print(f'[device] {kinds}; torch {torch.__version__}, CUDA '
           f'{torch.version.cuda}', flush=True)
+    if args.trainer:
+        return trainer_phases(card)
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
     # are pinned off for phases 2-5, 7-9 and 12's parity and restored to
@@ -1677,6 +2255,7 @@ def main() -> int:
         = tf32
     for tag, pred in predictors.items():
         phase_times(tag, pred, card)
+    phase_hmr_options(card)
     phase_fit_times(fit_rt, card, demo_out)
     phase_routes(fit_rt, kernels, launches)
 
@@ -1687,8 +2266,12 @@ def main() -> int:
         phase_train_parity(fit_rt, bb)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
-    for bb in ('resnet50', 'vit_s16'):
-        phase_train_times(fit_rt, bb, card, kernels)
+    bare_ms = {bb: phase_train_times(fit_rt, bb, card, kernels)
+               for bb in ('resnet50', 'vit_s16')}
+    # phases 13 and 14: the trainer and eval entry points
+    checkpoint = phase_train_loop(fit_rt, card, bare_ms['resnet50'])
+    phase_eval(checkpoint, card)
+    shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
     rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',

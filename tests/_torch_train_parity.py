@@ -11,12 +11,19 @@ outputs' non-zeros, three calls each).
 
 Gradients are compared through Adam's first moment, which after one step
 from zero is 0.1 x the gradient in both packages.
+
+Also shared by the trainer and eval tests: `jax_numpy_warp`, a fixture
+that puts the JAX package's crop on its numpy warp (it takes its native
+C++ warp when g++ builds it, which rounds otherwise; the port has the
+numpy warp only), and `save_jax_npz`, the JAX package's variables as the
+flat .npz checkpoint both packages read.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 from flax import linen as nn
 
@@ -32,6 +39,41 @@ from tuch_tpu_torch.train import module as PM
 from tuch_tpu_torch.utils.rotations import batch_rodrigues
 
 B, IMG, NV, NFITS = 2, 64, 170, 8
+
+
+@pytest.fixture(scope='module')
+def jax_numpy_warp():
+    from tuch_tpu.viz import native
+    patch = pytest.MonkeyPatch()
+    patch.setattr(native, 'get_lib', lambda: None)
+    yield
+    patch.undo()
+
+
+@pytest.fixture(scope='module')
+def few_torch_threads():
+    """Two intra-op threads while a module runs, the previous count after:
+    a training step at this size is thousands of small ops, and with every
+    pytest-xdist worker holding a thread per core, their barriers wait on
+    descheduled threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def save_jax_npz(variables, path):
+    """A Flax variables tree as a flat .npz ('params/backbone/...')."""
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat['/'.join(prefix + (k,))] = np.asarray(v)
+    walk(variables, ())
+    np.savez(path, **flat)
 
 # Bars. Gradients: the bar of tests/test_torch_port_attention_grad.py,
 # rtol 1e-3 + atol 1e-5 of each tensor's largest entry. Fits rows and

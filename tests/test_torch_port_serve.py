@@ -141,6 +141,13 @@ def test_http_error_contract(server):
     assert code == 200 and m['requests_client_error'] >= 3
 
 
+# the training and evaluation slice's modules, named so that a move or a
+# rename cannot drop one from the walk unnoticed
+SLICE5_MODULES = ('cli.train', 'cli.eval', 'train.trainer',
+                  'train.checkpoint', 'data.loader', 'data.mixed',
+                  'eval.evaluate', 'utils.procrustes')
+
+
 def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
     code = '\n'.join([
         'import importlib, pkgutil, sys',
@@ -149,6 +156,9 @@ def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
         "                               'tuch_tpu_torch.'):",
         '    importlib.import_module(m.name)',
         'import chip_smoke',
+        f'missing = [m for m in {SLICE5_MODULES!r}',
+        "           if 'tuch_tpu_torch.' + m not in sys.modules]",
+        'assert not missing, missing',
         "bad = sorted(n for n in sys.modules if n == 'jax'",
         "             or n.startswith(('jax.', 'jaxlib', 'flax'))",
         "             or n == 'tuch_tpu' or n.startswith('tuch_tpu.'))",
@@ -160,7 +170,7 @@ def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 44  # every module was imported
 
 
 def test_predictor_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -25,6 +25,7 @@ Usage:
   python -m tuch_tpu_torch.cli.serve --synthetic --backbone vit_s16 \
       --dtype bfloat16
   python -m tuch_tpu_torch.cli.serve --checkpoint ckpt.pt --port 8000
+  python -m tuch_tpu_torch.cli.serve --synthetic --bn_fold
 """
 
 import argparse
@@ -78,17 +79,20 @@ class TuchPredictor:
 
     dtype ('float32' or 'bfloat16') is the backbone's compute dtype; the
     weights load as float32 and every output is float32 either way.
+    bn_fold folds ResNet-50's eval-mode BatchNorm into its convolutions
+    after the checkpoint is loaded (models/hmr.fold_batchnorm).
     """
 
     def __init__(self, checkpoint=None, synthetic=False, dtype='float32',
                  img_res=224, num_verts=None, max_batch=1,
-                 batch_wait_ms=2.0, backbone='resnet50', device=None):
+                 batch_wait_ms=2.0, backbone='resnet50', device=None,
+                 bn_fold=False):
         self.device = resolve_device(device)
         self.img_res = img_res
         runtime = rt.build_runtime(
             device=self.device, synthetic=synthetic or None,
             num_verts=num_verts, backbone=backbone, checkpoint=checkpoint,
-            dtype=dtype)
+            dtype=dtype, bn_fold=bn_fold)
         # the backbone's weights cast to dtype once here, not per forward
         self.hmr = hmr_mod.store_compute_weights(runtime.hmr)
         self.smpl = runtime.smpl
@@ -335,7 +339,8 @@ def build_server(args) -> ThreadingHTTPServer:
         max_batch=getattr(args, 'max_batch', 1),
         batch_wait_ms=getattr(args, 'batch_wait_ms', 2.0),
         backbone=getattr(args, 'backbone', 'resnet50'),
-        device=getattr(args, 'device', None))
+        device=getattr(args, 'device', None),
+        bn_fold=getattr(args, 'bn_fold', False))
     predictor.warmup()
     httpd = ThreadingHTTPServer((args.host, args.port),
                                 make_handler(predictor))
@@ -369,6 +374,12 @@ def main(argv=None):
     p.add_argument('--backbone', default='resnet50',
                    help='regressor backbone: resnet50 (reference) or a '
                         'models/vit.py config name (vit_s16, ...)')
+    p.add_argument('--bn_fold', action='store_true',
+                   help='fold eval-mode BatchNorm into the ResNet-50 conv '
+                        'weights after the checkpoint is loaded (the same '
+                        'function to float32 rounding; inference only). '
+                        'On an H100 it saves device time with --dtype '
+                        'float32 only (PERF.md: slower under bfloat16)')
     p.add_argument('--device', default=None,
                    help="torch device (default cuda; 'cpu' to run there)")
     args = p.parse_args(argv)

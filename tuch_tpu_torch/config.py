@@ -20,17 +20,32 @@ DATA_DIR = os.environ.get('TUCH_DATA_DIR', 'data')
 DBS_PATH = os.path.join(DATA_DIR, 'dbs')
 DATASET_FILES = {
     'train': {
+        'mpi-inf-3dhp': os.path.join(DBS_PATH, 'mpi_inf_3dhp_train.pt'),
         'dsc_df': os.path.join(DBS_PATH, 'dsc_df_train.pt'),
         'dsc_lspet': os.path.join(DBS_PATH, 'dsc_lspet_train.pt'),
         'dsc_lsp': os.path.join(DBS_PATH, 'dsc_lsp_train.pt'),
         'mtp': os.path.join(DBS_PATH, 'mtp_train.pt'),
+        '3dpw': os.path.join(DBS_PATH, '3dpw_train.pt'),
+        'dsc_df_eft': os.path.join(DBS_PATH, 'dsc_df_eft_train.pt'),
+        'dsc_lspet_eft': os.path.join(DBS_PATH, 'dsc_lspet_eft_train.pt'),
+        'dsc_lsp_eft': os.path.join(DBS_PATH, 'dsc_lsp_eft_train.pt'),
+    },
+    'val': {'mtp': os.path.join(DBS_PATH, 'mtp_val.pt')},
+    'test': {
+        'mpi-inf-3dhp': os.path.join(DBS_PATH, 'mpi_inf_3dhp_test.pt'),
+        '3dpw': os.path.join(DBS_PATH, '3dpw_test.pt'),
     },
 }
 IMAGE_FOLDERS = {
+    'mpi-inf-3dhp': os.path.join(DS_DIR, 'mpi_inf_3dhp'),
+    '3dpw': os.path.join(DS_DIR, '3DPW'),
     'mtp': os.path.join(DS_DIR, 'mtp/images'),
     'dsc_df': os.path.join(DS_DIR, 'dsc/images/df/images'),
     'dsc_lspet': os.path.join(DS_DIR, 'dsc/images/lspet/images'),
     'dsc_lsp': os.path.join(DS_DIR, 'dsc/images/lsp/images'),
+    'dsc_df_eft': os.path.join(DS_DIR, 'dsc/images/df/images'),
+    'dsc_lspet_eft': os.path.join(DS_DIR, 'dsc/images/lspet/images'),
+    'dsc_lsp_eft': os.path.join(DS_DIR, 'dsc/images/lsp/images'),
 }
 
 SMPL_MODEL_DIR = os.path.join(DATA_DIR, 'models/smpl')
@@ -38,6 +53,10 @@ SMPL_MEAN_PARAMS = os.path.join(
     DATA_DIR, 'essentials/spin/smpl_mean_params.npz')
 JOINT_REGRESSOR_TRAIN_EXTRA = os.path.join(
     DATA_DIR, 'essentials/spin/J_regressor_extra.npy')
+JOINT_REGRESSOR_H36M = os.path.join(
+    DATA_DIR, 'essentials/spin/J_regressor_h36m.npy')
+STATIC_FITS_DIR = os.path.join(DATA_DIR, 'static_fits')
+THREEDPW_CIG = os.path.join(DATA_DIR, 'essentials/3dpw_test_csig_pc.npy')
 PRIOR_FOLDER = os.path.join(DATA_DIR, 'essentials/spin')
 GEODESICS_SMPL = os.path.join(
     DATA_DIR, 'essentials/geodesics/smpl/smpl_neutral_geodesic_dist.npy')
@@ -80,13 +99,36 @@ class SMPLifyDemoConfig:
 
 @dataclass
 class TrainConfig:
-    """The flags the training step reads (train/module.py), with the JAX
-    package's TrainConfig names and defaults; what only the trainer reads
-    (data, logging, checkpoints, schedule) comes with the trainer."""
+    """The flags of cli/train, with the JAX package's TrainConfig names and
+    defaults (the reference's TrainOptions), plus --device.
+
+    mesh_dp and mesh_cp name the JAX package's device mesh; the port runs
+    on one device, and a value above 1 raises (check_ported)."""
+    name: str = 'tuch'
+    time_to_run: float = float('inf')
+    resume: bool = False
+    num_workers: int = 8
+    pin_memory: bool = True
+    log_dir: str = 'logs'
+    checkpoint: Optional[str] = None
+    from_json: Optional[str] = None
+    pretrained_checkpoint: Optional[str] = None
+
+    num_epochs: int = 6
     lr: float = 1e-5
     batch_size: int = 64
+    summary_freq: float = 0.5
+    val_and_checkpoint_freq: float = 0.5
     img_res: int = 224
-    backbone: str = 'resnet50'
+
+    ds_names: List[str] = field(default_factory=lambda: ['dsc', 'mtp'])
+    ds_composition: List[float] = field(default_factory=lambda: [0.5, 0.5])
+    shuffle_train: bool = True
+
+    rot_factor: float = 30.0
+    noise_factor: float = 0.4
+    scale_factor: float = 0.25
+    ignore_3d: bool = False
 
     shape_loss_weight: float = 0.0
     keypoint_loss_weight: float = 5.0
@@ -97,6 +139,9 @@ class TrainConfig:
     gt_train_weight: float = 1.0
 
     run_smplify: bool = False
+    # directory of {ds}_fits.npy warm-start fits; '' = STATIC_FITS_DIR when
+    # it exists, 'none' = no seeding (checkpoint fits take priority)
+    static_fits_dir: str = ''
     smplify_threshold: float = 100.0
     num_smplify_iters: int = 10
     use_contact_in_the_loop: bool = True
@@ -111,13 +156,89 @@ class TrainConfig:
     smplify_contact_capacity: int = 0
     # the same compaction for the regressor contact loss over valid fits
     regressor_contact_capacity: int = 0
+    # fill the four knobs above with the JAX package's speed profile,
+    # each only where the user left it alone (finalize)
+    fast_profile: bool = False
+
+    # rotate the 3D keypoints with the image (False: the reference's dead
+    # rotation branch, 3D keypoints not rotated)
+    rotate_pose_3d: bool = False
+    # --synthetic body size (0: the full 6890-vertex topology)
+    synthetic_num_verts: int = 0
+    grad_clip: float = 0.0           # global-norm gradient clip (0: off)
+    synthetic: bool = False          # synthetic assets and data
+    # --synthetic only: 2D keypoints projected from the db's own SMPL joints
+    synthetic_projected_kpts: bool = False
     # dense-surface contact in the regressor loss, on hd_k HD points
     use_hd: bool = True
     hd_k: int = 1024
+    mesh_dp: int = 0                 # data-parallel devices (0: all)
+    mesh_cp: int = 1                 # contact-parallel devices
+    compute_dtype: str = 'float32'   # or 'bfloat16' for the backbone
+    # the JAX package's space-to-depth stem, a TPU layout of the same
+    # function: accepted, and the plain 7x7 stem here (models/hmr)
+    stem_s2d: bool = False
+    backbone: str = 'resnet50'
+    seed: int = 0
+    # torch device ('cuda' raises without a card; 'cpu' to run there)
+    device: str = 'cuda'
+
+    # derived (finalize)
+    summary_dir: str = ''
+    checkpoint_dir: str = ''
+    _finalized: bool = False
+    # the flags the user set (CLI tokens, --from_json keys): parse_config
+    # records them so that fast_profile leaves them alone
+    _explicit: tuple = ()
+
+    def _untouched(self, name, default):
+        """Whether fast_profile may fill `name`: not set by the user (by
+        the parse_config record, else by comparison with the default)."""
+        if self._explicit:
+            return name not in self._explicit
+        return getattr(self, name) == default
+
+    def finalize(self):
+        """Apply fast_profile, resolve log_dir/name, make the summary and
+        checkpoint directories and write config.json."""
+        if self.fast_profile:
+            if self._untouched('smplify_exterior_refresh', 1):
+                self.smplify_exterior_refresh = 4
+            if self._untouched('contact_candidate_k', 0):
+                self.contact_candidate_k = 984
+            if self._untouched('smplify_contact_capacity', 0):
+                self.smplify_contact_capacity = (5 * self.batch_size) // 8
+            if self._untouched('regressor_contact_capacity', 0):
+                self.regressor_contact_capacity = (5 * self.batch_size) // 8
+        if not self._finalized:
+            self.log_dir = os.path.join(os.path.abspath(self.log_dir),
+                                        self.name)
+        self._finalized = True
+        self.summary_dir = os.path.join(self.log_dir, 'tensorboard')
+        self.checkpoint_dir = os.path.join(self.log_dir, 'checkpoints')
+        os.makedirs(self.summary_dir, exist_ok=True)
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, 'config.json'), 'w') as f:
+            json.dump(dataclasses.asdict(self), f, indent=4, default=str)
+        return self
+
+
+def check_ported(options):
+    """Raise for a device mesh of more than one device (--mesh_dp,
+    --mesh_cp): parallel/ is not ported yet (ROADMAP, modules to port)."""
+    for name in ('mesh_dp', 'mesh_cp'):
+        if getattr(options, name, 0) > 1:
+            raise NotImplementedError(
+                f'--{name} {getattr(options, name)}: the device mesh is not '
+                'ported yet (parallel/ in ROADMAP\'s modules to port); the '
+                'port runs on one device')
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls):
     for f in dataclasses.fields(cls):
+        if f.name in ('summary_dir', 'checkpoint_dir') \
+                or f.name.startswith('_'):
+            continue
         default = f.default if f.default is not dataclasses.MISSING else (
             f.default_factory() if f.default_factory is not dataclasses.MISSING
             else None)
@@ -140,16 +261,28 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, cls):
             parser.add_argument(arg, type=str, default=default)
 
 
-def parse_config(cls=SMPLifyDemoConfig, argv=None):
-    """Build a config from CLI flags; --from_json overrides them."""
+def parse_config(cls=SMPLifyDemoConfig, argv=None, finalize=True):
+    """Build a config from CLI flags; --from_json overrides them. The flags
+    the user set are recorded in _explicit where the class has it, and a
+    class with finalize() is finalized unless finalize=False."""
+    import sys
     parser = argparse.ArgumentParser()
     _add_dataclass_args(parser, cls)
     args = parser.parse_args(argv)
     known = {f.name for f in dataclasses.fields(cls)}
     cfg = cls(**{k: v for k, v in vars(args).items() if k in known})
+    tokens = list(sys.argv[1:] if argv is None else argv)
+    explicit = {n for n in known
+                if any(t == f'--{n}' or t.startswith(f'--{n}=')
+                       or t == f'--no_{n}' for t in tokens)}
     if cfg.from_json:
         with open(cfg.from_json) as f:
             for k, v in json.load(f).items():
-                if k in known:
+                if k in known and not k.startswith('_'):
                     setattr(cfg, k, v)
+                    explicit.add(k)
+    if '_explicit' in known:
+        cfg._explicit = tuple(sorted(explicit))
+    if finalize and hasattr(cfg, 'finalize'):
+        cfg.finalize()
     return cfg

@@ -63,6 +63,13 @@ JOINT_MAP_49 = np.array([JOINT_MAP[name] for name in JOINT_NAMES],
                         dtype=np.int32)
 JOINT_IDS = {name: i for i, name in enumerate(JOINT_NAMES)}
 
+# Joint selectors of evaluation: the H36M regressor's 17 joints, and the
+# 24 ground-truth joints, to the 17- and 14-joint subsets.
+H36M_TO_J17 = [6, 5, 4, 1, 2, 3, 16, 15, 14, 11, 12, 13, 8, 10, 0, 7, 9]
+H36M_TO_J14 = H36M_TO_J17[:14]
+J24_TO_J17 = [14, 3, 4, 5, 2, 1, 0, 16, 12, 17, 18, 9, 10, 11, 8, 7, 6]
+J24_TO_J14 = J24_TO_J17[:14]
+
 # Permutations under a horizontal flip: SMPL joints (and their 72 pose
 # entries), the 24 ground-truth joints and the full 49.
 SMPL_JOINTS_FLIP_PERM = [0, 2, 1, 3, 5, 4, 6, 8, 7, 9, 11, 10, 12, 14, 13,

@@ -26,6 +26,16 @@ dtype at each call (store_compute_weights casts them once instead, for
 serving), and BatchNorm takes a bfloat16 input with its float32
 statistics, computes in float32 and rounds its output once, as Flax's
 BatchNorm(dtype=bfloat16) does.
+
+Two ResNet-50 options of the JAX package: ``stem_s2d`` and ``bn_fold``.
+The JAX package's ``stem_s2d`` computes the 7x7 stride-2 stem as a 4x4
+convolution on a 2x2 space-to-depth input, a layout for the TPU's matrix
+unit, over the same weight and to the same result. cuDNN's 7x7 stem is
+faster on CUDA cards, so here the flag is accepted and recorded, and the
+stem stays the plain convolution: checkpoints and outputs are those of the
+stock model. ``bn_fold`` is the inference-only folded form, biased
+convolutions and no BatchNorm, whose weights fold_batchnorm makes from a
+stock state dict (``folded`` does both for a model).
 """
 
 import math
@@ -48,11 +58,12 @@ BN_MOMENTUM = 0.9
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d (no bias) in the input's dtype, on float32 weights cast
-    per call (a no-op for a float32 input)."""
+    """nn.Conv2d in the input's dtype, on float32 weights (and bias, in the
+    folded form) cast per call (a no-op for a float32 input)."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), None)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -99,23 +110,30 @@ def _dropout(x, keep):
     return torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
 
 
+def _norm(planes: int, bn_fold: bool) -> nn.Module:
+    """BatchNorm, or nothing in the folded form (its affine is in the conv
+    before it)."""
+    return nn.Identity() if bn_fold else BatchNorm2d(planes)
+
+
 class Bottleneck(nn.Module):
-    """ResNet v1.5 bottleneck (1x1 -> 3x3 with the stride -> 1x1, x4)."""
+    """ResNet v1.5 bottleneck (1x1 -> 3x3 with the stride -> 1x1, x4).
+    bn_fold: the folded form, biased convs and no BatchNorm."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, bn_fold: bool = False):
         super().__init__()
-        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=bn_fold)
+        self.bn1 = _norm(planes, bn_fold)
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1,
-                            bias=False)
-        self.bn2 = BatchNorm2d(planes)
-        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4)
+                            bias=bn_fold)
+        self.bn2 = _norm(planes, bn_fold)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=bn_fold)
+        self.bn3 = _norm(planes * 4, bn_fold)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-            BatchNorm2d(planes * 4)) if downsample else None
+            Conv2d(inplanes, planes * 4, 1, stride=stride, bias=bn_fold),
+            _norm(planes * 4, bn_fold)) if downsample else None
 
     def forward(self, x):
         out = self.relu(self.bn1(self.conv1(x)))
@@ -125,9 +143,12 @@ class Bottleneck(nn.Module):
         return self.relu(out + identity)
 
 
-def _resnet_layer(inplanes: int, planes: int, blocks: int, stride: int):
-    layers = [Bottleneck(inplanes, planes, stride, downsample=True)]
-    layers += [Bottleneck(planes * 4, planes) for _ in range(blocks - 1)]
+def _resnet_layer(inplanes: int, planes: int, blocks: int, stride: int,
+                  bn_fold: bool):
+    layers = [Bottleneck(inplanes, planes, stride, downsample=True,
+                         bn_fold=bn_fold)]
+    layers += [Bottleneck(planes * 4, planes, bn_fold=bn_fold)
+               for _ in range(blocks - 1)]
     return nn.Sequential(*layers)
 
 
@@ -141,24 +162,32 @@ class HMR(nn.Module):
 
     def __init__(self, mean_pose6d, mean_shape, mean_cam,
                  backbone: str = 'resnet50',
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 stem_s2d: bool = False, bn_fold: bool = False):
         super().__init__()
         self.backbone_name = backbone
         self.dtype = dtype
+        self.stem_s2d, self.bn_fold = stem_s2d, bn_fold
         if backbone == 'resnet50':
             # the reference's top-level module names, so its keys load as-is
-            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-            self.bn1 = BatchNorm2d(64)
+            self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3,
+                                bias=bn_fold)
+            self.bn1 = _norm(64, bn_fold)
             self.relu = nn.ReLU(inplace=True)
             self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
             inplanes = 64
             for i, (blocks, planes) in enumerate(
                     zip(RESNET50_STAGES, (64, 128, 256, 512)), start=1):
                 setattr(self, f'layer{i}', _resnet_layer(
-                    inplanes, planes, blocks, 1 if i == 1 else 2))
+                    inplanes, planes, blocks, 1 if i == 1 else 2, bn_fold))
                 inplanes = planes * 4
             nfeat = inplanes
         elif backbone in vit_mod.VIT_CONFIGS:
+            if stem_s2d or bn_fold:
+                raise ValueError(
+                    'stem_s2d and bn_fold are ResNet-50 transforms '
+                    f'(backbone {backbone!r} has no 7x7 stem and no '
+                    'BatchNorm)')
             self.backbone = vit_mod.create_vit(backbone, dtype=dtype)
             nfeat = self.backbone.width
         else:
@@ -192,6 +221,10 @@ class HMR(nn.Module):
         """dropout, read in train() only: the head's keep-masks
         (draw_dropout_masks' layout; None draws them from torch's default
         generator). eval() has no dropout."""
+        if self.bn_fold and self.training:
+            raise ValueError('bn_fold is an inference-only transform: a '
+                             'folded model has no BatchNorm statistics to '
+                             'update; call eval()')
         xf = self.features(images)
         B = xf.shape[0]
         masks = None
@@ -233,9 +266,67 @@ def store_compute_weights(model: HMR) -> HMR:
 
 def create_hmr(mean_pose6d, mean_shape, mean_cam,
                backbone: str = 'resnet50',
-               dtype: torch.dtype = torch.float32) -> HMR:
+               dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
+               bn_fold: bool = False) -> HMR:
     return HMR(mean_pose6d, mean_shape, mean_cam, backbone=backbone,
-               dtype=dtype)
+               dtype=dtype, stem_s2d=stem_s2d, bn_fold=bn_fold)
+
+
+def _conv_bn_pairs(state_dict):
+    """(conv, the BatchNorm after it) module names of a ResNet-50 HMR."""
+    pairs = [('conv1', 'bn1')]
+    for key in state_dict:
+        head, _, leaf = key.rpartition('.')
+        if head.startswith('layer') and leaf == 'running_var':
+            parent, _, bn = head.rpartition('.')
+            conv = f'{parent}.0' if bn == '1' and parent.endswith(
+                'downsample') else f'{parent}.conv{bn[2:]}'
+            pairs.append((conv, head))
+    return pairs
+
+
+@torch.no_grad()
+def fold_batchnorm(state_dict, eps: float = 1e-5):
+    """A ResNet-50 HMR's state dict with its eval-mode BatchNorm folded
+    into the convolution before each one, for HMR(bn_fold=True): as
+    tuch_tpu/models/hmr.py fold_batchnorm, in float32,
+
+        weight' = weight * g / sqrt(var + eps)
+        bias'   = beta - mean * g / sqrt(var + eps)
+
+    and no BatchNorm entry remains. The running variance is Flax's biased
+    one (BatchNorm2d), folded as it is. Raises for a state dict without
+    BatchNorm statistics (a ViT)."""
+    if 'bn1.running_var' not in state_dict:
+        raise ValueError('fold_batchnorm needs the BatchNorm statistics of '
+                         'a ResNet-50 HMR; this state dict has none (a ViT '
+                         'backbone?): --bn_fold is a ResNet-50 transform')
+    out = dict(state_dict)
+    for conv, bn in _conv_bn_pairs(state_dict):
+        # sqrt in float64, then rounded: the correctly rounded float32 root
+        # (torch's float32 sqrt on the CPU is not always, and the bias's
+        # cancellation magnifies an ulp)
+        root = torch.sqrt(
+            (out.pop(f'{bn}.running_var') + eps).double()).float()
+        s = out.pop(f'{bn}.weight') / root
+        mean = out.pop(f'{bn}.running_mean')
+        out.pop(f'{bn}.num_batches_tracked', None)
+        out[f'{conv}.weight'] = out[f'{conv}.weight'] * s[:, None, None,
+                                                          None]
+        out[f'{conv}.bias'] = out.pop(f'{bn}.bias') - mean * s
+    return out
+
+
+def folded(model: HMR) -> HMR:
+    """A new eval-mode HMR(bn_fold=True) holding model's weights with its
+    BatchNorm folded (fold_batchnorm), on model's device, with its dtype,
+    stem and IEF start."""
+    new = HMR(*(b.cpu() for b in (model.init_pose, model.init_shape,
+                                  model.init_cam)),
+              backbone=model.backbone_name, dtype=model.dtype,
+              stem_s2d=model.stem_s2d, bn_fold=True)
+    new.load_state_dict(fold_batchnorm(model.state_dict()))
+    return new.to(model.init_pose.device).eval()
 
 
 @torch.no_grad()

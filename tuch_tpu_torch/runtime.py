@@ -9,7 +9,10 @@ tables) are built too and held on the device; serving leaves it off and
 never builds the (V, V) geodesic matrix. With HD on, the dense surface of
 the training step's contact loss is built too (losses/regressor.HDAssets).
 ``dtype`` is HMR's compute dtype (the JAX runtime's ``compute_dtype``); its
-weights load as float32 either way.
+weights load as float32 either way. ``stem_s2d`` is accepted and builds the
+plain stem (models/hmr says why); ``bn_fold`` folds the
+eval-mode BatchNorm into the convolutions after the checkpoint is loaded,
+for serving and evaluation (as the JAX package's cli/serve and cli/eval).
 """
 
 import os
@@ -73,11 +76,13 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
                   with_contact: bool = False,
                   with_segments: bool = True,
                   dtype: str = 'float32',
-                  with_hd: bool = False) -> Runtime:
+                  with_hd: bool = False, stem_s2d: bool = False,
+                  bn_fold: bool = False) -> Runtime:
     """Build SMPL and HMR in eval mode on `device` (CUDA by default);
     with_contact adds the GMM prior and the contact assets, with_hd the HD
     surface. HMR computes in `dtype` ('float32' or 'bfloat16', a key of
-    COMPUTE_DTYPES).
+    COMPUTE_DTYPES), folded (inference only) if bn_fold; stem_s2d is
+    recorded on the HMR and changes nothing else.
 
     synthetic=None picks the real assets when SMPL_NEUTRAL.pkl exists and
     says which it picked. The synthetic body, its contact extras and prior,
@@ -120,10 +125,12 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
             hd_compact = _load_real_hd()
 
     hmr = hmr_mod.create_hmr(*means, backbone=backbone,
-                             dtype=COMPUTE_DTYPES[dtype])
+                             dtype=COMPUTE_DTYPES[dtype], stem_s2d=stem_s2d)
     hmr_mod.init_weights(hmr)
     if checkpoint:
         load_hmr_weights(hmr, load_checkpoint(checkpoint))
+    if bn_fold:
+        hmr = hmr_mod.folded(hmr)
     hd = None if hd_compact is None else make_hd_assets_compact(
         *hd_compact, smpl_model.faces, device=dev)
     runtime = Runtime(smpl=SMPL(smpl_model).to(dev).eval(),

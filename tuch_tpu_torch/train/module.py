@@ -8,7 +8,13 @@ the parameters and the BatchNorm statistics and is updated in place, and
 whose fits tensor is replaced. The order of the work is the JAX step's:
 ground-truth SMPL, fits lookup, camera estimation, HMR forward, in-the-loop
 SMPLify-DC on detached inputs, accept/reject and fits writeback, the loss,
-its gradient and an Adam step with optax's float32 bias corrections.
+its gradient, optax's clip_by_global_norm when options.grad_clip > 0, and
+an Adam step with optax's float32 bias corrections.
+
+The HMR's compute dtype (options.compute_dtype, set when the runtime builds
+it) needs nothing here: a bfloat16 HMR casts its float32 weights per call,
+its BatchNorm computes in float32 from float32 statistics, and its outputs,
+parameters and gradients are float32, so Adam's moments are too.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -62,6 +68,16 @@ def init_train_state(hmr: HMR, fits: torch.Tensor, lr: float,
     params = {k: p.detach() for k, p in hmr.named_parameters()}
     return TrainState(hmr=hmr, opt=Adam(params, lr), fits=fits,
                       generator=gen, step=0)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """optax.clip_by_global_norm(max_norm) on a sequence of tensors: the
+    norm over all of them in float32 (summed in the sequence's order), and
+    each g kept where norm < max_norm, else (g / norm) * max_norm. No host
+    synchronisation."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
 
 def region_contact_signature(verts: torch.Tensor,
@@ -239,6 +255,8 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
             names, params = zip(*hmr.named_parameters())
             grads = torch.autograd.grad(total, params, allow_unused=True,
                                         materialize_grads=True)
+            if options.grad_clip > 0:
+                grads = clip_by_global_norm(grads, options.grad_clip)
         with record_function('train_step.adam'), torch.no_grad():
             new = state.opt.step(dict(zip(names, params)),
                                  dict(zip(names, grads)))

@@ -1,0 +1,318 @@
+"""Training engine: the epoch loop, validation, metrics, checkpoint and
+resume.
+
+Counterpart of tuch_tpu/train/trainer.py. The loop feeds the loader's numpy
+batches to the eager step of train/module.py and logs; validation (v2v and
+MPJPE on the validation set, the reference's trainer.py:172-267) is the
+HMR's eval-mode forward under no_grad, which neither moves the BatchNorm
+statistics nor draws from the dropout generator, so a run that validates
+and checkpoints resumes bit for bit on the CPU.
+
+Image summaries need a renderer (viz/, not ported): with none the trainer
+says so once and logs scalars only.
+"""
+
+import json
+import os
+import signal
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from tuch_tpu_torch import config as cfg
+from tuch_tpu_torch import constants, resolve_device
+from tuch_tpu_torch.data.loader import (CheckpointLoader, LoaderState,
+                                        add_fits_indices)
+from tuch_tpu_torch.models.smpl import smpl_forward, smpl_forward_pose72
+from tuch_tpu_torch.train import fits_store
+from tuch_tpu_torch.train.checkpoint import CheckpointManager
+from tuch_tpu_torch.train.module import (TuchAssets, init_train_state,
+                                         make_train_step)
+
+
+def freq_to_step(freq: float, total_steps: int) -> int:
+    """Fraction-of-epoch frequency -> step interval (the reference's
+    saver.py:34-40); <= 0 never fires."""
+    if freq <= 0:
+        return max(1, total_steps + 1)
+    return max(1, int(total_steps * freq))
+
+
+class MetricsLogger:
+    """Scalars as JSON lines in summary_dir/metrics.jsonl, and to
+    TensorBoard when torch.utils.tensorboard imports."""
+
+    def __init__(self, summary_dir: str):
+        os.makedirs(summary_dir, exist_ok=True)
+        self.path = os.path.join(summary_dir, 'metrics.jsonl')
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            self.tb = SummaryWriter(summary_dir)
+        except ImportError:
+            pass
+
+    def scalars(self, tag_prefix: str, metrics: Dict[str, Any], step: int):
+        values = {f'{tag_prefix}/{k}': float(v) for k, v in metrics.items()}
+        with open(self.path, 'a') as f:
+            f.write(json.dumps({'step': step, **values}) + '\n')
+        if self.tb is not None:
+            for k, v in values.items():
+                self.tb.add_scalar(k, v, step)
+
+    def close(self):
+        if self.tb is not None:
+            self.tb.close()
+            self.tb = None
+
+
+class Trainer:
+    """The training loop around one HMR (its parameters and statistics are
+    the state's, updated in place) on `device` (CUDA unless 'cpu')."""
+
+    def __init__(self, options, hmr, assets: TuchAssets, train_ds, val_ds,
+                 j_regressor_h36m: Optional[np.ndarray] = None,
+                 device=None):
+        cfg.check_ported(options)
+        self.options = options
+        self.device = resolve_device(device)
+        self.model = hmr
+        self.assets = assets
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.joint_mapper_h36m = np.asarray(constants.H36M_TO_J14)
+        self.j_regressor_h36m = j_regressor_h36m
+        print('[trainer] image summaries are not ported yet '
+              '(viz/renderer.py); logging scalars only', flush=True)
+        self.logger = MetricsLogger(options.summary_dir)
+        self.ckpt = CheckpointManager(options.checkpoint_dir)
+        self.endtime = time.time() + options.time_to_run
+
+        # fits seeding: checkpoint fits, then static ones, then zeros
+        static_dir = options.static_fits_dir
+        if static_dir == '':
+            static_dir = cfg.STATIC_FITS_DIR \
+                if os.path.isdir(cfg.STATIC_FITS_DIR) else None
+        elif str(static_dir).lower() == 'none':
+            static_dir = None
+        store = fits_store.create_fits_store(
+            train_ds.dataset_sizes(), static_fits_dir=static_dir,
+            checkpoint_dir=options.checkpoint_dir, device=self.device)
+        self.fits_layout = store
+        self.offsets_table = np.asarray(
+            [store.offsets[n] for n in train_ds.dataset_list], np.int32)
+
+        self.step_fn = make_train_step(assets, options)
+        self.state = init_train_state(hmr, store.params, options.lr,
+                                      seed=options.seed)
+        self.loader = CheckpointLoader(
+            train_ds, batch_size=options.batch_size,
+            shuffle=options.shuffle_train,
+            num_workers=options.num_workers, seed=options.seed)
+        self.loader_state = LoaderState(epoch=0, batch_idx=0,
+                                        perm_seed=options.seed)
+
+        # an explicit --checkpoint resumes from that file, wherever it is
+        if options.resume and (options.checkpoint is not None
+                               or self.ckpt.exists()):
+            self.state, ls = self.ckpt.restore(self.state,
+                                               options.checkpoint)
+            self.loader_state = LoaderState(
+                epoch=int(ls.get('epoch', 0)),
+                batch_idx=int(ls.get('batch_idx', 0)),
+                perm_seed=int(ls.get('perm_seed', options.seed)))
+            print(f'Resumed at step {self.state.step}, epoch '
+                  f'{self.loader_state.epoch}, batch '
+                  f'{self.loader_state.batch_idx}', flush=True)
+        # the step last persisted: fit()'s final save skips if nothing ran
+        self._last_saved_step = self.state.step
+
+    # ------------------------------------------------------------------
+    def fit(self):
+        """Train to num_epochs, or until the time budget or a SIGTERM: then
+        the step in flight finishes, the exact position is checkpointed and
+        fit returns (the handler is installed while fit runs, from the main
+        thread only)."""
+        def _on_term(signum, frame):
+            print('SIGTERM: finishing current step, checkpointing, '
+                  'exiting', flush=True)
+            self.endtime = 0.0
+
+        prev_handler = None
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:   # not the main thread
+            pass
+        try:
+            for epoch in range(self.loader_state.epoch,
+                               self.options.num_epochs):
+                if not self.train_one_epoch(epoch):
+                    break    # mid-epoch exit, position already saved
+                self.loader_state = LoaderState(
+                    epoch=epoch + 1, batch_idx=0,
+                    perm_seed=self.loader_state.perm_seed)
+                print(f'================ EPOCH {epoch} DONE '
+                      f'================', flush=True)
+                if time.time() > self.endtime:
+                    print('time budget reached; stopping', flush=True)
+                    break
+            if self.state.step != self._last_saved_step:
+                self._save_checkpoint(self.loader_state.epoch,
+                                      self.loader_state.batch_idx, None)
+        finally:
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def close(self):
+        self.logger.close()
+
+    def train_one_epoch(self, epoch: int) -> bool:
+        """One epoch from the loader's position; False after a mid-epoch
+        exit (time budget or SIGTERM), which checkpoints the next batch."""
+        nb = self.loader.num_batches()
+        checkpoint_steps = freq_to_step(
+            self.options.val_and_checkpoint_freq, nb)
+        start = self.loader_state.batch_idx \
+            if self.loader_state.epoch == epoch else 0
+        state_iter = LoaderState(epoch=epoch, batch_idx=start,
+                                 perm_seed=self.loader_state.perm_seed)
+        # TUCH_PROFILE_STEPS=lo:hi: a torch.profiler trace of batches
+        # [lo, hi) into <summary_dir>/profile
+        prof_range = os.environ.get('TUCH_PROFILE_STEPS')
+        prof_lo, prof_hi = (-1, -1)
+        if prof_range:
+            prof_lo, prof_hi = (int(x) for x in prof_range.split(':'))
+        prof = None
+        t_last = time.time()
+        # metrics are logged one step behind: float() of a device tensor
+        # waits for the step, so step N is read after N + 1 is issued
+        step = self.state.step
+        pending = None
+        try:
+            for bi, batch in enumerate(self.loader.epoch_iter(state_iter),
+                                       start=start):
+                if bi == prof_lo:
+                    prof = _start_profile(self.options.summary_dir)
+                if bi == prof_hi and prof is not None:
+                    prof.stop()
+                    prof = None
+                batch = add_fits_indices(batch, self.offsets_table)
+                self.state, metrics, _ = self.step_fn(self.state, batch)
+                step += 1
+                if pending is not None:
+                    self._log_train_metrics(*pending)
+                now = time.time()
+                metrics = dict(metrics)
+                metrics['steps_per_sec'] = 1.0 / max(now - t_last, 1e-9)
+                t_last = now
+                pending = (metrics, step, epoch, bi)
+
+                saved_this_step = step % checkpoint_steps == 0
+                if saved_this_step:
+                    val_error = self.validate(step)
+                    self._save_checkpoint(epoch, bi + 1, val_error)
+                if time.time() > self.endtime:
+                    if not saved_this_step:
+                        self._save_checkpoint(epoch, bi + 1, None)
+                    self.loader_state = LoaderState(
+                        epoch=epoch, batch_idx=bi + 1,
+                        perm_seed=self.loader_state.perm_seed)
+                    return False
+            return True
+        finally:
+            if pending is not None:
+                self._log_train_metrics(*pending)
+            if prof is not None:
+                prof.stop()
+
+    def _save_checkpoint(self, epoch: int, next_batch_idx: int, val_error):
+        """Persist the state, the fits and the position a resume continues
+        from, with the loader's permutation seed (not --seed: a resume
+        under another seed keeps the original stream)."""
+        self.ckpt.save(self.state, {
+            'epoch': epoch, 'batch_idx': next_batch_idx,
+            'perm_seed': self.loader_state.perm_seed}, val_error)
+        fits_store.save_fits(
+            self.fits_layout._replace(params=self.state.fits),
+            self.options.checkpoint_dir)
+        self._last_saved_step = self.state.step
+
+    def _log_train_metrics(self, metrics, step, epoch, bi):
+        self.logger.scalars('train', metrics, step)
+        if step % 25 == 0:
+            msg = ', '.join(f'{k}: {float(v):.4f}'
+                            for k, v in metrics.items())
+            print(f'[{epoch}:{bi}/{self.loader.num_batches()}] {msg}',
+                  flush=True)
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _val_forward(self, batch):
+        """(predicted, ground-truth) vertices of a batch as numpy, from the
+        HMR's eval-mode forward."""
+        smpl = self.assets.smpl
+        dev = self.state.fits.device
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            rotmat, betas, _ = self.model(torch.as_tensor(batch['img'],
+                                                          device=dev))
+        finally:
+            self.model.train(was_training)
+        pred = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
+                            pose2rot=False)
+        gt = smpl_forward_pose72(
+            smpl, torch.as_tensor(batch['betas'], device=dev),
+            torch.as_tensor(batch['pose'], device=dev))
+        return pred.vertices.cpu().numpy(), gt.vertices.cpu().numpy()
+
+    def validate(self, step: int) -> float:
+        """v2v and MPJPE on the validation set, in mm (trainer.py:172-267):
+        without the H36M joint regressor the joint error is a vertex
+        subsample, logged as mpjpe_v2v_proxy. Returns the joint error."""
+        if self.val_ds is None:
+            return float('nan')
+        loader = CheckpointLoader(self.val_ds,
+                                  batch_size=self.options.batch_size,
+                                  shuffle=False, num_workers=2)
+        have_regressor = self.j_regressor_h36m is not None
+        joint_metric = 'mpjpe' if have_regressor else 'mpjpe_v2v_proxy'
+        mpjpe_all, v2v_all = [], []
+        for batch in loader.epoch_iter(LoaderState(0, 0, 0)):
+            pred_v, gt_v = self._val_forward(batch)
+            if have_regressor:
+                J = self.j_regressor_h36m
+                pred_j = np.einsum('jv,bvd->bjd', J, pred_v)
+                gt_j = np.einsum('jv,bvd->bjd', J, gt_v)
+                pred_j = (pred_j - pred_j[:, :1])[:, self.joint_mapper_h36m]
+                gt_j = (gt_j - gt_j[:, :1])[:, self.joint_mapper_h36m]
+            else:
+                pred_j, gt_j = pred_v[:, ::97], gt_v[:, ::97]
+            mpjpe_all.append(np.sqrt(((pred_j - gt_j) ** 2).sum(-1))
+                             .mean(-1))
+            v2v_all.append(np.sqrt(((pred_v - gt_v) ** 2).sum(-1)).mean(-1))
+        if not mpjpe_all:
+            return float('nan')
+        mpjpe = float(np.concatenate(mpjpe_all).mean() * 1000)
+        v2v = float(np.concatenate(v2v_all).mean() * 1000)
+        self.logger.scalars('val', {joint_metric: mpjpe, 'v2v': v2v}, step)
+        print(f'[val] {joint_metric} {mpjpe:.2f}mm v2v {v2v:.2f}mm',
+              flush=True)
+        return mpjpe
+
+
+def _start_profile(summary_dir: str):
+    """A running torch.profiler that writes a Chrome trace into
+    summary_dir/profile when stopped (with the card's kernels if one is
+    in use)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
+        os.path.join(summary_dir, 'profile')))
+    prof.start()
+    return prof
