@@ -112,10 +112,28 @@ the flags a user types:
              reports within EVAL_BN_FOLD_MM, images/s), and 8 samples on
              the card and on the CPU (per-sample errors within VERTEX_TOL).
 
+and EFT and the demo and rendering path, through their entry points:
+
+ 15. eft     cli/fit_eft --synthetic on the full body at 224 px with
+             ResNet-50 (4 images, up to 50 Adam steps each): finite
+             outputs, the npz schema, the exact launches of kernels 2, 4, 5
+             and 6 per step, steps and ms per image; then on one image the
+             card against the port's CPU path over 3 steps on the same
+             dropout masks (the loss at TRAIN_LOSS_RTOL, pose and betas by
+             phase 12's rule against the CPU's float64 fit), steps with a
+             loss read each against steps with none (the stop check's
+             cost), and one profiled fit's device busy time and idle share.
+ 16. demo    cli/demo_tuch --synthetic on the card and on the CPU: every
+             output written, vertices within VERTEX_TOL, the native C++
+             library (viz/native.cpp, built with g++) taken for the crop
+             and the renders; then 8 images, each one's time by part (crop,
+             forward, renders, file writes), and one crop at 224 px by the
+             native warp and by the numpy warp.
+
 `python3 chip_smoke.py --trainer` runs phases 1, 6b, 12 (ResNet-50 times),
-13 and 14 alone (~2.5 minutes, against the whole smoke's ~9) and prints no
-result lines. Weights and bodies are random from fixed seeds. The last two lines of
-standard output are the kernel summary and {"ok": true, "device": {...}} as
+13 and 14 alone (~2.5 minutes, against the whole smoke's ~10) and prints
+no result lines. Weights and bodies are random from fixed seeds. The last
+two lines of standard output are the kernel summary and {"ok": true, "device": {...}} as
 JSON; the line before them is the card's name and power limit from
 nvidia-smi.
 """
@@ -207,11 +225,30 @@ TRAIN_LOG_DIR = os.path.join('build', 'chip_smoke_train')
 # (80GB HBM3, 700 W; tools/resume_noise.py and phase 13, 26 runs of A
 # again or resumed) the parameters read 0 or 3.513e-3 (one Adam update of
 # about lr on one element, flipped), Adam's mu 0 or 1.274e-3, nu 0 or
-# 1.339e-3, the fits 6.8e-8 to 8.3e-6. Each bar is 4x the largest reading
-# (rounded up); a resume that lost Adam's moments, the fits or the dropout
-# generator moves its part by O(1).
-RESUME_BAR = {'params': 1.5e-2, 'mu': 6e-3, 'nu': 6e-3, 'fits': 4e-5}
+# 1.339e-3. The fits read 6.8e-8 to 8.3e-6 on crops of the numpy warp and,
+# since the crop takes the native warp (other pixels, other fits), 7.5e-8
+# to 1.321e-4 in 7 resumes (while a run of A again, B, flipped a fit's
+# accept decision at step 2 in 3 of 6 and moved the fits 0.17). Each bar is
+# 4x the largest reading of a resume (rounded up); a resume that lost
+# Adam's moments, the fits or the dropout generator moves its part by O(1).
+RESUME_BAR = {'params': 1.5e-2, 'mu': 6e-3, 'nu': 6e-3, 'fits': 6e-4}
 EVAL_BN_FOLD_MM = 0.01           # cli/eval report, --bn_fold against not
+# EFT (phase 15): cli/fit_eft --synthetic fits its 4-sample database; the
+# exact launches of one fit step; the card against the CPU over 3 steps
+# (the loss at the step's loss bar, pose and betas by phase 12's rule);
+# steps with and without the per-step stop check
+EFT_DIR = os.path.join('build', 'chip_smoke_eft')
+EFT_STEP_LAUNCHES = {'winding': 2, 'masked_min': 1, 'gather': 1,
+                     'scatter_add': 1}
+EFT_PARITY_STEPS = 3
+EFT_AB_STEPS, EFT_AB_PAIRS = 10, 2
+# demo_tuch (phase 16): outputs per image, card against CPU vertices
+# (VERTEX_TOL), images for the times, crops timed per warp
+DEMO_DIR = os.path.join('build', 'chip_smoke_demo')
+DEMO_FILES = ('.obj', '_r60.obj', '_r300.obj', '_camera.pkl', '_img_in.png',
+              '.png')
+DEMO_TIMED_IMAGES = 8
+CROP_TIMED = 50
 
 # torch.profiler: the runtime calls that launch a kernel (by prefix), and
 # the one-call captures taken before one that lost its kernel's record
@@ -581,11 +618,12 @@ def one_call_work(fn, name):
 def kernel_rows(prof, top):
     """A profile's device busy ms and its kernels with the most device time
     as (name, ms, calls); record_function spans on the device (named
-    'train_step.<part>') are ranges, not kernels, and are left out."""
+    'train_step.<part>' or 'eft_step.<part>') are ranges, not kernels, and
+    are left out."""
     from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and not e.key.startswith('train_step.')]
+               and not e.key.startswith(('train_step.', 'eft_step.'))]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return busy, [(e.key[:70], e.self_device_time_total / 1e3, e.count)
@@ -2182,6 +2220,274 @@ def phase_eval(checkpoint, card):
         check(d <= EVAL_BN_FOLD_MM, f'--bn_fold moves {k} by {d} mm')
 
 
+# ---------------------------------------------------------------------------
+# EFT and the demo (phases 15 and 16)
+# ---------------------------------------------------------------------------
+
+def eft_sample(num_classes):
+    """The first sample of cli/fit_eft --synthetic's database, as (1, ...)
+    numpy arrays: image, keypoints, contact labels."""
+    import tempfile
+    from tuch_tpu_torch.data.dataset import TuchDataset, synthetic_db
+    with tempfile.TemporaryDirectory() as d:
+        db = synthetic_db(4, img_dir=d, seed=0,
+                          num_contact_classes=num_classes)
+        s = TuchDataset(SimpleNamespace(img_res=224, seed=0), 'dsc_df',
+                        data=db, img_dir=d, use_augmentation=False,
+                        num_contact_classes=num_classes).get(0)
+    return [np.asarray(s[k])[None].astype(np.float32)
+            for k in ('img', 'keypoints', 'contact_vec')]
+
+
+def eft_fit_on(dev, runtime, sample, dtype=torch.float32, **kw):
+    """make_eft_fit_fn on `dev` from runtime's ResNet-50 weights and body
+    (copies; in float64 with dtype): (fit_one, start state, inputs)."""
+    from tuch_tpu_torch.fitting import eft as E
+    from tuch_tpu_torch.losses.eft import EFTWeights
+    hmr = copy.deepcopy(runtime.hmr).to(dev)
+    smpl = copy.deepcopy(runtime.smpl).to(dev)
+    contact = runtime.contact.to(dev)
+    if dtype == torch.float64:
+        hmr, smpl = hmr.double(), smpl.double()
+        hmr.dtype = dtype
+        contact = contact._replace(
+            segment_tables=_to_double(contact.segment_tables))
+    fit = E.make_eft_fit_fn(hmr, smpl, contact, EFTWeights(), img_res=224,
+                            **kw)
+    start = {k: v.detach().clone() for k, v in hmr.state_dict().items()}
+    ins = [torch.as_tensor(x, dtype=dtype, device=dev) for x in sample]
+    return fit, start, ins
+
+
+def phase_eft(runtime, card):
+    """cli/fit_eft --synthetic on the card (4 images, ResNet-50 at 224 px,
+    the full body with every contact asset): finite outputs, the npz
+    schema, the exact launches of kernels 2, 4, 5 and 6 per step, steps and
+    ms per image; then on the first image the card against the port's CPU
+    path over EFT_PARITY_STEPS steps on the same dropout masks (TF32 off),
+    the stop check's cost (steps with a loss read each against steps with
+    none, in turns) and one profiled fit's device busy time and idle
+    share."""
+    from tuch_tpu_torch.cli import fit_eft
+    from tuch_tpu_torch.fitting import eft as E
+    from tuch_tpu_torch.models.hmr import draw_dropout_masks
+    fitters = []
+
+    class Recorded(E.EFTFitter):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            fitters.append(self)
+
+    shutil.rmtree(EFT_DIR, ignore_errors=True)
+    counters = slice_counters()
+    cls, E.EFTFitter = E.EFTFitter, Recorded
+    try:
+        t0 = time.perf_counter()
+        for c in counters.values():
+            c.launches = 0                   # the main path starts here
+        written = fit_eft.main(['--synthetic', '--out_dir', EFT_DIR,
+                                '--device', DEV])
+        counts = {k: c.launches for k, c in counters.items()}  # ... ends
+        wall = time.perf_counter() - t0
+    finally:
+        E.EFTFitter = cls
+    (fitter,), (path,) = fitters, written
+    records = fitter.records
+    steps = sum(r[1] for r in records)
+    expected = {k: n * steps for k, n in EFT_STEP_LAUNCHES.items()}
+    with np.load(path) as d:
+        out = {k: d[k] for k in d.files}
+    check(sorted(out) == ['betas', 'indices', 'pose'],
+          f'eft npz {sorted(out)}')
+    check(out['pose'].shape == (4, 72) and out['betas'].shape == (4, 10)
+          and out['pose'].dtype == np.float32, 'eft npz shapes')
+    check(out['indices'].tolist() == [0, 1, 2, 3], 'eft npz indices')
+    check(bool(np.isfinite(out['pose']).all()
+               and np.isfinite(out['betas']).all()), 'eft: non-finite fit')
+    check(all(np.isfinite(r[2]) for r in records), 'eft: non-finite loss')
+    per_step = [1e3 * r[3] / r[1] for r in records]
+    print(f'[eft] cli/fit_eft --synthetic, {len(records)} images, ResNet-50 '
+          f'at 224 px, {runtime.smpl.v_template.shape[0]} vertices: steps '
+          f'{[r[1] for r in records]}, loss '
+          f'{[round(r[2], 3) for r in records]}; ms per image '
+          f'{[round(1e3 * r[3], 3) for r in records]}, per step '
+          f'{[round(x, 3) for x in per_step]} (median '
+          f'{np.median(per_step):.3f}); whole run {wall:.3f} s with its '
+          f'runtime; launches {counts}, expected {expected} '
+          f'({EFT_STEP_LAUNCHES} a step); card: {card}', flush=True)
+    check(counts == expected, f'eft launches {counts} != {expected}')
+
+    # the card against the CPU, same masks, TF32 off
+    sample = eft_sample(len(runtime.contact_classes))
+    masks = [draw_dropout_masks(1, torch.Generator().manual_seed(40 + i))
+             for i in range(EFT_PARITY_STEPS)]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        for tag, dev, dtype in (('card', DEV, torch.float32),
+                                ('cpu', 'cpu', torch.float32),
+                                ('float64', 'cpu', torch.float64)):
+            fit, start, ins = eft_fit_on(dev, runtime, sample, dtype,
+                                         max_steps=EFT_PARITY_STEPS)
+            r = fit(start, *ins, dropout=lambda i, dev=dev: [
+                tuple(m.to(dev) for m in pair) for pair in masks[i]])
+            res[tag] = dict(pose=r.pose.cpu().double(),
+                            betas=r.betas.cpu().double(), loss=r.loss,
+                            steps=r.steps)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    card_r, cpu_r, exact = res['card'], res['cpu'], res['float64']
+    loss_gap = abs(card_r['loss'] - cpu_r['loss']) / (
+        TRAIN_LOSS_RTOL * abs(cpu_r['loss'])
+        + TRAIN_LOSS_ATOL * max(1.0, abs(cpu_r['loss'])))
+    ratios = {}
+    for part in ('pose', 'betas'):
+        c, g, e = cpu_r[part], card_r[part], exact[part]
+        ratios[part] = (g - e).norm().item() / (
+            2 * (c - e).norm().item() + TRAIN_GRAD_RTOL * c.norm().item())
+        print(f'[parity eft]   {part}: |card - float64| '
+              f'{(g - e).norm().item():.4g}, |CPU - float64| '
+              f'{(c - e).norm().item():.4g}, |CPU| {c.norm().item():.4g}',
+              flush=True)
+    print(f'[parity eft] {EFT_PARITY_STEPS} steps on one image, ResNet-50 '
+          f'at 224 px: loss {card_r["loss"]:.7g} (card) vs '
+          f'{cpu_r["loss"]:.7g} (CPU) vs {exact["loss"]:.7g} (CPU float64), '
+          f'{loss_gap:.3g} of its bar (rtol {TRAIN_LOSS_RTOL}); pose and '
+          f'betas: ratio of |card - float64| to twice |CPU - float64| + '
+          f'{TRAIN_GRAD_RTOL} |CPU| '
+          f'{ {k: round(v, 3) for k, v in ratios.items()} } (<= 1)',
+          flush=True)
+    check(card_r['steps'] == cpu_r['steps'] == EFT_PARITY_STEPS,
+          'eft parity: steps')
+    check(loss_gap <= 1.0, f'eft parity: loss {loss_gap}')
+    check(max(ratios.values()) <= 1.0, f'eft parity: {ratios}')
+
+    # the stop check: the same steps reading the loss after each (from
+    # step 1: min_steps -1, early_stop_loss -inf) and reading it once at
+    # the end (min_steps = max_steps), in turns
+    variants = {'read each step': dict(min_steps=-1,
+                                       early_stop_loss=float('-inf')),
+                'no read': dict(min_steps=EFT_AB_STEPS)}
+    fits = {tag: eft_fit_on(DEV, runtime, sample, max_steps=EFT_AB_STEPS,
+                            **kw) for tag, kw in variants.items()}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def run(tag):
+        fit, start, ins = fits[tag]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fit(start, *ins, generator=gen)
+        torch.cuda.synchronize()
+        check(r.steps == EFT_AB_STEPS, f'eft {tag}: {r.steps} steps')
+        return 1e3 * (time.perf_counter() - t0) / EFT_AB_STEPS
+
+    for tag in variants:
+        run(tag)                              # warm
+    ab = {tag: [] for tag in variants}
+    for i in range(EFT_AB_PAIRS):
+        order = list(variants) if i % 2 == 0 else list(variants)[::-1]
+        for tag in order + order[::-1]:
+            ab[tag].append(run(tag))
+    med = {tag: float(np.median(v)) for tag, v in ab.items()}
+    cost = med['read each step'] - med['no read']
+    wall, prof = profiled(lambda: run('read each step'))
+    busy, top = kernel_rows(prof, top=6)
+    check_ms = [e.cpu_time_total / 1e3 / e.count
+                for e in prof.key_averages() if e.key == 'eft_step.stop_check']
+    print(f'[times eft] ms per step over {EFT_AB_STEPS} steps (median of '
+          f'{2 * EFT_AB_PAIRS}): '
+          + ', '.join(f'{tag} {v:.3f} ({[round(x, 3) for x in ab[tag]]})'
+                      for tag, v in med.items())
+          + f'; the stop check costs {cost:.3f} ms a step; profiled '
+          f'({EFT_AB_STEPS} steps, reading each): host wall {wall:.3f} ms, '
+          f'device busy {busy:.3f} ms ({busy / EFT_AB_STEPS:.3f} a step), '
+          f'idle {100 * (1 - busy / wall):.1f}%, stop check span '
+          f'{check_ms[0] if check_ms else float("nan"):.3f} ms host a call; '
+          f'top kernels {[(n, round(ms, 3), c) for n, ms, c in top]}; '
+          f'TF32 cuDNN {torch.backends.cudnn.allow_tf32}; card: {card}',
+          flush=True)
+
+
+def phase_demo(card):
+    """cli/demo_tuch --synthetic on the card and on the CPU (TF32 off):
+    every output written, the card's vertices within VERTEX_TOL of the
+    CPU's, the native library taken for the crop and the renders; then the
+    demo over DEMO_TIMED_IMAGES images on the card, each image's time by
+    part, and one crop at 224 px by the native warp and by the numpy
+    warp."""
+    from tuch_tpu_torch.cli import demo_tuch
+    from tuch_tpu_torch.data import transforms as T
+    from tuch_tpu_torch.viz import native
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    recs = {}
+    try:
+        for dev in (DEV, 'cpu'):
+            calls = dict(native.calls)
+            outdir = os.path.join(DEMO_DIR, dev)
+            (recs[dev],) = demo_tuch.main(['--synthetic', '--outdir', outdir,
+                                           '--device', dev])
+            made = {k: native.calls[k] - calls[k] for k in calls}
+            check(made == {'rasterize_mesh': 2, 'affine_warp_f32': 1},
+                  f'demo {dev}: native calls {made}')
+            for suffix in DEMO_FILES:
+                f = os.path.join(outdir, 'synthetic_input' + suffix)
+                check(os.path.isfile(f) and os.path.getsize(f) > 0,
+                      f'demo {dev}: {f} missing')
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    verts = {dev: r[1] for dev, r in recs.items()}
+    err = float(np.abs(verts[DEV] - verts['cpu']).max())
+    check(bool(np.isfinite(verts[DEV]).all()), 'demo: non-finite vertices')
+    print(f'[demo] cli/demo_tuch --synthetic, ResNet-50 at 224 px: every '
+          f'output written on the card and on the CPU; vertices card vs CPU '
+          f'{err:.3g} m (bar {VERTEX_TOL}, TF32 off); native library '
+          f'{native.library_path().name}', flush=True)
+    check(err <= VERTEX_TOL, f'demo: vertices card vs CPU {err}')
+
+    # times: a directory of images on the card (TF32 defaults)
+    src = os.path.join(DEMO_DIR, DEV, 'synthetic_input.png')
+    img_dir = os.path.join(DEMO_DIR, 'images')
+    os.makedirs(img_dir)
+    for i in range(DEMO_TIMED_IMAGES):
+        shutil.copy(src, os.path.join(img_dir, f'img_{i:02d}.png'))
+    recs = demo_tuch.main(['--synthetic', '--img', img_dir, '--outdir',
+                           os.path.join(DEMO_DIR, 'timed'), '--device', DEV])
+    parts = {p: [1e3 * r[3][p] for r in recs[1:]] for p in demo_tuch.PARTS}
+    img = (np.random.RandomState(0).rand(480, 640, 3) * 255).astype(np.uint8)
+    crop_ms = {}
+    t = T.get_transform((320, 240), 2.0, (224, 224), 10.0)
+    for tag, fn in (
+            ('native', lambda: T.crop_image(img, (320, 240), 2.0,
+                                            (224, 224), rot=10.0)),
+            ('numpy', lambda: T.affine_warp_numpy(img, np.linalg.inv(t),
+                                                  (224, 224)))):
+        fn()
+        ts = []
+        for _ in range(CROP_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        crop_ms[tag] = float(np.median(ts))
+    print(f'[times demo] cli/demo_tuch over {DEMO_TIMED_IMAGES} images on '
+          f'the card, ms per image (median of images 2-{DEMO_TIMED_IMAGES}, '
+          f'host clock): '
+          + ', '.join(f'{p} {np.median(v):.3f}' for p, v in parts.items())
+          + f', total {np.median([sum(x) for x in zip(*parts.values())]):.3f}'
+          f'; one crop at 224 px from 480x640 uint8 (median of '
+          f'{CROP_TIMED}): native warp {crop_ms["native"]:.3f} ms, numpy '
+          f'warp {crop_ms["numpy"]:.3f} ms; card: {card}', flush=True)
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+
+
 def trainer_phases(card):
     """Phases 1, 6b, 12's ResNet-50 times, 13 and 14 alone, with their
     checks; no result lines."""
@@ -2272,6 +2578,9 @@ def main(argv=None) -> int:
     checkpoint = phase_train_loop(fit_rt, card, bare_ms['resnet50'])
     phase_eval(checkpoint, card)
     shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
+    # phases 15 and 16: EFT, and the demo with its renders
+    phase_eft(fit_rt, card)
+    phase_demo(card)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
     rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',

@@ -12,11 +12,9 @@ outputs' non-zeros, three calls each).
 Gradients are compared through Adam's first moment, which after one step
 from zero is 0.1 x the gradient in both packages.
 
-Also shared by the trainer and eval tests: `jax_numpy_warp`, a fixture
-that puts the JAX package's crop on its numpy warp (it takes its native
-C++ warp when g++ builds it, which rounds otherwise; the port has the
-numpy warp only), and `save_jax_npz`, the JAX package's variables as the
-flat .npz checkpoint both packages read.
+Also shared by the trainer and eval tests: `few_torch_threads`, and
+`save_jax_npz`, the JAX package's variables as the flat .npz checkpoint
+both packages read.
 """
 
 import jax
@@ -39,15 +37,6 @@ from tuch_tpu_torch.train import module as PM
 from tuch_tpu_torch.utils.rotations import batch_rodrigues
 
 B, IMG, NV, NFITS = 2, 64, 170, 8
-
-
-@pytest.fixture(scope='module')
-def jax_numpy_warp():
-    from tuch_tpu.viz import native
-    patch = pytest.MonkeyPatch()
-    patch.setattr(native, 'get_lib', lambda: None)
-    yield
-    patch.undo()
 
 
 @pytest.fixture(scope='module')

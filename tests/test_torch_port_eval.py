@@ -9,8 +9,8 @@
   and 'mpi-inf-3dhp' (the dataset's 3D joints), the same weights carried
   by models/convert: each sample's MPJPE and PA-MPJPE at rtol 1e-4, the
   same report keys and values (rtol 1e-4), and the result_file npz with the
-  same keys and shapes. The JAX package crops with its numpy warp, as in
-  tests/test_torch_port_loader.py.
+  same keys and shapes. Both packages crop with their default warp, as
+  in tests/test_torch_port_loader.py.
 - cli/eval: tests/test_torch_port_eval_cli.py.
 """
 
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from tests._torch_train_parity import (  # noqa: F401
-    few_torch_threads, jax_numpy_warp)
+    few_torch_threads)
 from tuch_tpu import assets as jassets
 from tuch_tpu import runtime as jrt
 from tuch_tpu.data.dataset import TuchDataset as JDataset
@@ -41,7 +41,7 @@ PROCRUSTES_RTOL = 1e-5
 N = 10
 
 
-pytestmark = pytest.mark.usefixtures('jax_numpy_warp', 'few_torch_threads')
+pytestmark = pytest.mark.usefixtures('few_torch_threads')
 
 
 @pytest.fixture(scope='module')

@@ -4,8 +4,8 @@ cli/eval --synthetic --device cpu on the JAX package's weights (its .npz
 tree as --checkpoint): the report against the JAX package's cli/eval at
 rtol 1e-4 (the run_evaluation bar of tests/test_torch_port_eval.py), and
 with --bn_fold within 0.01 mm of it (chip_smoke.py phase 14's bar);
---mesh_dp 2 and a run without --device cpu raise. The JAX package crops
-with its numpy warp, as in tests/test_torch_port_loader.py.
+--mesh_dp 2 and a run without --device cpu raise. Both packages crop with
+their default warp, as in tests/test_torch_port_loader.py.
 """
 
 import re
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from tests._torch_train_parity import (  # noqa: F401
-    few_torch_threads, jax_numpy_warp, save_jax_npz)
+    few_torch_threads, save_jax_npz)
 from tuch_tpu import runtime as jrt
 from tuch_tpu.cli import eval as jeval_cli
 from tuch_tpu_torch.cli import eval as peval_cli
@@ -24,7 +24,7 @@ RTOL = 1e-4
 BN_FOLD_MM = 0.01
 
 
-pytestmark = pytest.mark.usefixtures('jax_numpy_warp', 'few_torch_threads')
+pytestmark = pytest.mark.usefixtures('few_torch_threads')
 
 
 def _jax_report(capsys, argv):

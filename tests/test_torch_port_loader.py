@@ -2,13 +2,12 @@
 
 Both packages' TuchDataset, MixedDataset and CheckpointLoader over one
 synthetic database (the port's synthetic_db, which draws the JAX package's
-stream) yield equal batches, every key and every element. The JAX package
-crops with its native C++ warp when g++ builds it (tuch_tpu/viz/native.cpp,
-not ported; it rounds otherwise than its numpy warp); here it takes its
-numpy warp, the port's. The cases: one epoch, a
-later epoch, a mid-epoch resume, 0 workers against 4, a loader seed other
-than the state's perm_seed, a batch larger than the dataset, and
-add_fits_indices. Then tests/test_train.py's checks of the loader's
+stream) yield equal batches, every key and every element. Each package
+crops with its default warp: the native C++ warp of viz/native.cpp where
+g++ builds it (tests/test_torch_port_crop.py), else the numpy warp. The
+cases: one epoch, a later epoch, a mid-epoch resume, 0 workers against 4,
+a loader seed other than the state's perm_seed, a batch larger than the
+dataset, and add_fits_indices. Then tests/test_train.py's checks of the loader's
 threads and errors and of the mix's share weighting, on the port's
 modules.
 """
@@ -21,7 +20,6 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 
-from tests._torch_train_parity import jax_numpy_warp  # noqa: F401
 from tuch_tpu import config as jcfg
 from tuch_tpu.data import loader as JL
 from tuch_tpu.data import mixed as JMX
@@ -36,9 +34,8 @@ N = 10
 
 
 @pytest.fixture(scope='module')
-def mixes(tmp_path_factory, jax_numpy_warp):
-    """(JAX mix, port mix) of 'dsc_lsp' and 'mtp' over one database, the
-    JAX package on its numpy crop warp."""
+def mixes(tmp_path_factory):
+    """(JAX mix, port mix) of 'dsc_lsp' and 'mtp' over one database."""
     d = str(tmp_path_factory.mktemp('imgs'))
     db = synthetic_db(N, img_dir=d, seed=3)
     out = []

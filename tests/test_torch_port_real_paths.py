@@ -45,9 +45,7 @@ pytestmark = pytest.mark.usefixtures('few_torch_threads')
 @pytest.fixture()
 def tree(asset_tree, tmp_path, monkeypatch):  # noqa: F811
     """The asset tree plus dataset files and eval assets, both packages'
-    config on it, and the JAX package on its numpy crop warp."""
-    from tuch_tpu.viz import native
-    monkeypatch.setattr(native, 'get_lib', lambda: None)
+    config on it (each package on its default crop warp)."""
     model0, extras, _, _ = asset_tree
     for name in PATHS:
         monkeypatch.setattr(pcfg, name, getattr(jcfg, name))
@@ -96,12 +94,16 @@ FLAGS = ['--ds_names', 'dsc', 'mtp', '--ds_composition', '0.6', '0.4',
 
 
 def _record(trainer):
+    """fit() with a step that records its batch and returns no outputs, so
+    no image summary is drawn (the JAX package's Trainer here has no
+    renderer either)."""
     seen = []
 
     def step(state, batch, *a, **kw):
         seen.append(batch)
         return state, {}, {}
     trainer.step_fn = step
+    trainer.renderer = None
     trainer.fit()
     return seen
 

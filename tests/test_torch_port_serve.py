@@ -146,6 +146,10 @@ def test_http_error_contract(server):
 SLICE5_MODULES = ('cli.train', 'cli.eval', 'train.trainer',
                   'train.checkpoint', 'data.loader', 'data.mixed',
                   'eval.evaluate', 'utils.procrustes')
+# and those of EFT and the demo and rendering path
+SLICE6_MODULES = ('losses.eft', 'data.eft_dataset', 'fitting.eft',
+                  'cli.fit_eft', 'viz', 'viz.native', 'viz.renderer',
+                  'cli.demo_tuch')
 
 
 def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
@@ -156,7 +160,7 @@ def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
         "                               'tuch_tpu_torch.'):",
         '    importlib.import_module(m.name)',
         'import chip_smoke',
-        f'missing = [m for m in {SLICE5_MODULES!r}',
+        f'missing = [m for m in {SLICE5_MODULES + SLICE6_MODULES!r}',
         "           if 'tuch_tpu_torch.' + m not in sys.modules]",
         'assert not missing, missing',
         "bad = sorted(n for n in sys.modules if n == 'jax'",
@@ -170,7 +174,7 @@ def test_port_imports_no_jax_and_nothing_of_tuch_tpu():
                          env=dict(os.environ, PYTHONPATH=REPO),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 44  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 52  # every module was imported
 
 
 def test_predictor_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -469,8 +469,11 @@ def test_demo_cli_runs_on_cpu(tmp_path, monkeypatch):
     lines = buf.getvalue().splitlines()
     loss = [ln for ln in lines if ln.startswith('reprojection loss:')]
     assert len(loss) == 1 and 'nan' not in loss[0]
-    assert any('not ported yet' in ln for ln in lines)
-    assert not os.listdir(tmp_path)      # no renders, no files
+    # the renders, into log_dir/name as the JAX demo writes them
+    out = tmp_path / 'logs' / 'tuch'
+    assert f'saved fits to {out}' in lines
+    assert sorted(os.listdir(out)) == [
+        f'{i:04d}_{k}.png' for i in range(2) for k in ('fit', 'opti')]
 
 
 def test_demo_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -3,8 +3,8 @@
 The batches each package's Trainer hands its step over one epoch of the
 synthetic mix (cli/train's --synthetic data) are equal, fits_index
 included: the step is replaced by a recorder that returns the state
-unchanged (nothing in tuch_tpu changes; its crop takes its numpy warp, as
-in tests/test_torch_port_loader.py). Validation on the same weights
+unchanged (nothing in tuch_tpu changes; both crop with their default
+warp, as in tests/test_torch_port_loader.py). Validation on the same weights
 (carried by models/convert) gives the JAX package's v2v and joint error
 at rtol 1e-4, and moves neither the BatchNorm statistics nor the dropout
 generator. Then the fits store's seeding (checkpoint dir, static dir,
@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from tests._torch_train_parity import (  # noqa: F401
-    few_torch_threads, jax_numpy_warp)
+    few_torch_threads)
 from tuch_tpu import config as jcfg
 from tuch_tpu import runtime as jrt
 from tuch_tpu.data.dataset import TuchDataset as JDataset
@@ -47,14 +47,18 @@ SMALL = ['--synthetic', '--synthetic_num_verts', '170', '--img_res', '64',
 VAL_RTOL = 1e-4
 
 
-pytestmark = pytest.mark.usefixtures('jax_numpy_warp', 'few_torch_threads')
+pytestmark = pytest.mark.usefixtures('few_torch_threads')
 
 
 def port_trainer(tmp_path, name, *flags):
+    """The port's Trainer as its cli/train builds it, without the renderer
+    (as jax_trainer builds the JAX package's)."""
     opts = pcfg.parse_config(pcfg.TrainConfig, SMALL + [
         '--device', 'cpu', '--log_dir', str(tmp_path), '--name', name,
         *flags])
-    return ptrain.build(opts)
+    trainer = ptrain.build(opts)
+    trainer.renderer = None
+    return trainer
 
 
 def jax_trainer(tmp_path, name, *flags):

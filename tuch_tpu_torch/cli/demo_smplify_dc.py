@@ -2,18 +2,18 @@
 
 Counterpart of tuch_tpu/cli/demo_smplify_dc.py: crop the dataset images,
 initialise with an HMR forward (SPIN), refine the whole batch at once with
-the two-stage SMPLify-DC fit with contact, and print the per-image
-reprojection loss.
+the two-stage SMPLify-DC fit with contact, print the per-image
+reprojection loss and render each image: <i>_fit.png (the init, the fit,
+the fit turned 90 degrees, coloured by its contact labels) and <i>_opti.png
+(the fit's trajectory), into --out_dir or else log_dir/name.
 
   python -m tuch_tpu_torch.cli.demo_smplify_dc --synthetic --num_images 4 \
       --num_smplify_iters 100
   python -m tuch_tpu_torch.cli.demo_smplify_dc --synthetic --device cpu \
       --synthetic_num_verts 170 --img_res 64 --num_images 2
-
-The renders of the JAX demo (init and fit, front and rotated) need the
-renderer, which is not ported yet; the demo says so and writes no files.
 """
 
+import os
 import tempfile
 import time
 from typing import NamedTuple
@@ -26,8 +26,10 @@ from tuch_tpu_torch import constants, resolve_device
 from tuch_tpu_torch import runtime as rt
 from tuch_tpu_torch.data.dataset import TuchDataset, synthetic_db
 from tuch_tpu_torch.fitting import smplify_dc as S
+from tuch_tpu_torch.models.smpl import smpl_forward
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
+from tuch_tpu_torch.viz.renderer import Renderer, save_png
 
 
 class DemoOutput(NamedTuple):
@@ -56,17 +58,19 @@ def load_batch(args, num_classes: int) -> dict:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
-def run(args, runtime=None) -> DemoOutput:
-    """The demo's computation on args.device (CUDA by default): returns
-    the fit, its HMR init and the batch. A built runtime may be passed in
-    (it must hold the contact assets)."""
+def build(args) -> rt.Runtime:
+    """The demo's runtime on args.device (CUDA by default), with the
+    contact assets."""
+    return rt.build_runtime(
+        device=resolve_device(args.device), synthetic=args.synthetic or None,
+        num_verts=args.synthetic_num_verts or None, backbone=args.backbone,
+        checkpoint=args.checkpoint, with_contact=True)
+
+
+def run(args, runtime: rt.Runtime) -> DemoOutput:
+    """The demo's computation on args.device with a runtime that holds the
+    contact assets (build): returns the fit, its HMR init and the batch."""
     dev = resolve_device(args.device)
-    if runtime is None:
-        runtime = rt.build_runtime(
-            device=dev, synthetic=args.synthetic or None,
-            num_verts=args.synthetic_num_verts or None,
-            backbone=args.backbone, checkpoint=args.checkpoint,
-            with_contact=True)
     batch = load_batch(args, len(runtime.contact_classes))
     B = batch['img'].shape[0]
 
@@ -113,13 +117,54 @@ def run(args, runtime=None) -> DemoOutput:
                       seconds=seconds)
 
 
+def render(args, runtime, out: DemoOutput) -> str:
+    """Write <i>_fit.png and <i>_opti.png for each image into
+    args.out_dir, or else log_dir/name (the reference's directory);
+    returns the directory."""
+    out_dir = args.out_dir or os.path.join(os.path.abspath(args.log_dir),
+                                           args.name)
+    os.makedirs(out_dir, exist_ok=True)
+    renderer = Renderer(img_res=args.img_res,
+                        faces=runtime.smpl.faces.cpu().numpy(),
+                        contact_classes=runtime.contact_classes,
+                        contact_csig=runtime.contact_csig)
+    mean = np.asarray(constants.IMG_NORM_MEAN, np.float32)
+    std = np.asarray(constants.IMG_NORM_STD, np.float32)
+    with torch.no_grad():
+        init_verts = smpl_forward(
+            runtime.smpl, out.init_betas, out.init_pose[:, 3:],
+            out.init_pose[:, :3]).vertices.cpu().numpy()
+    init_cam_t = out.init_cam_t.cpu().numpy()
+    res = out.result
+    verts = res.vertices.cpu().numpy()
+    traj = res.trajectory.cpu().numpy()
+    cam_t = res.camera_translation.cpu().numpy()
+    batch = out.batch
+    B = verts.shape[0]
+    for i in range(B):
+        img01 = np.clip(batch['img'][i] * std + mean, 0, 1)
+        cv = batch['contact_vec'][i]
+        tiles = [
+            renderer.render_over(init_verts[i], init_cam_t[i], img01),
+            renderer.render_over(verts[i], cam_t[i], img01, contact_vec=cv),
+            renderer.render_rotated(verts[i], cam_t[i], 90.0,
+                                    contact_vec=cv),
+        ]
+        save_png(os.path.join(out_dir, f'{i:04d}_fit.png'),
+                 np.concatenate(tiles, axis=1))
+        save_png(os.path.join(out_dir, f'{i:04d}_opti.png'),
+                 renderer.visu_smplifycontactopti(traj, cam_t, [img01] * B,
+                                                  sample=i))
+    return out_dir
+
+
 def main(argv=None):
     args = cfgmod.parse_config(cfgmod.SMPLifyDemoConfig, argv)
-    out = run(args)
+    runtime = build(args)
+    out = run(args, runtime)
     print('reprojection loss:',
           out.result.reprojection_loss.mean(dim=-1).cpu().numpy())
-    print('renders are not ported yet (viz/renderer.py); no images '
-          'written')
+    print('saved fits to', render(args, runtime, out))
 
 
 if __name__ == '__main__':

@@ -3,10 +3,10 @@
 Counterpart of tuch_tpu/cli/train.py with the same flags (config.TrainConfig,
 the reference's TrainOptions) plus --device: datasets and their mix, HMR
 with its runtime (--compute_dtype, --stem_s2d, --pretrained_checkpoint),
-SMPL, SMPLify-DC and the regressor loss, and the Trainer. --synthetic runs
-on the synthetic body and a synthetic database of max(4 * batch_size, 8)
-samples, seen as 'dsc_lsp' and 'mtp', whose images are written under the
-run's log directory.
+SMPL, SMPLify-DC and the regressor loss, and the Trainer with the renderer
+of its image summaries. --synthetic runs on the synthetic body and a
+synthetic database of max(4 * batch_size, 8) samples, seen as 'dsc_lsp' and
+'mtp', whose images are written under the run's log directory.
 
   python -m tuch_tpu_torch.cli.train --name tuch_run --ds_names dsc mtp \\
       --ds_composition 0.5 0.5 --run_smplify
@@ -33,6 +33,7 @@ def build(options, runtime=None):
     from tuch_tpu_torch.data.mixed import MixedDataset
     from tuch_tpu_torch.train.module import TuchAssets
     from tuch_tpu_torch.train.trainer import Trainer
+    from tuch_tpu_torch.viz.renderer import Renderer
 
     cfg.check_ported(options)
     device = resolve_device(options.device)
@@ -68,8 +69,12 @@ def build(options, runtime=None):
         if os.path.isfile(cfg.JOINT_REGRESSOR_H36M) else None
     assets = TuchAssets(runtime.smpl, runtime.prior, runtime.contact,
                         runtime.hd if options.use_hd else None)
+    renderer = Renderer(img_res=options.img_res,
+                        faces=runtime.smpl.faces.cpu().numpy(),
+                        contact_classes=runtime.contact_classes,
+                        contact_csig=runtime.contact_csig)
     return Trainer(options, runtime.hmr, assets, train_ds, val_ds,
-                   j_regressor_h36m=j_reg, device=device)
+                   j_regressor_h36m=j_reg, device=device, renderer=renderer)
 
 
 def run(options, runtime=None):

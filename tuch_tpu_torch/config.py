@@ -74,7 +74,10 @@ euclthres = 0.02
 class SMPLifyDemoConfig:
     """Flags of demo_smplify_dc: the subset of the JAX package's
     SMPLifyDemoConfig that the demo and its dataset read, plus --device.
-    The port's demo writes no files, so it has no log or output dir."""
+    The renders go to out_dir, or with out_dir '' to log_dir/name."""
+    name: str = 'tuch'
+    log_dir: str = 'logs'
+    out_dir: str = ''
     checkpoint: Optional[str] = None
     from_json: Optional[str] = None
     img_res: int = 224

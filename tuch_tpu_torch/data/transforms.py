@@ -1,8 +1,10 @@
 """Host-side crop, flips and keypoint/pose transforms, in numpy.
 
 Counterpart of tuch_tpu/data/transforms.py: the crop is one inverse-warp
-bilinear resample (crop + rotate + resize in a single affine map); the
-keypoint and pose transforms are what TuchDataset.get needs.
+bilinear resample (crop + rotate + resize in a single affine map), by the
+native C++ warp (viz/native) wherever g++ builds it, as in the JAX package,
+else by its plain numpy version (affine_warp_numpy); the keypoint and pose
+transforms are what TuchDataset.get needs.
 """
 
 from typing import Tuple
@@ -10,6 +12,7 @@ from typing import Tuple
 import numpy as np
 
 from tuch_tpu_torch import constants
+from tuch_tpu_torch.viz import native
 
 
 def get_transform(center, scale, res: Tuple[int, int], rot: float = 0.0
@@ -66,7 +69,9 @@ def crop_image(img: np.ndarray, center, scale, res: Tuple[int, int],
     """Affine crop by one inverse-warp bilinear resample.
 
     img (H, W, C) float or uint8 -> (res[0], res[1], C) float32; samples
-    outside the image are zero.
+    outside the image are zero. The native warp when the library is built
+    (its source coordinates in float32), else the numpy warp (float64):
+    the JAX package's choice, on the same sliced source and t_inv.
     """
     t = get_transform(center, scale, res, rot)
     t_inv = np.linalg.inv(t)
@@ -91,7 +96,16 @@ def crop_image(img: np.ndarray, center, scale, res: Tuple[int, int],
         shift[0, 2] = -x_lo
         shift[1, 2] = -y_lo
         t_inv = shift @ t_inv
+    if native.get_lib() is not None:
+        return native.affine_warp(np.asarray(img, np.float32), t_inv,
+                                  res[0], res[1])
+    return affine_warp_numpy(img, t_inv, res)
 
+
+def affine_warp_numpy(img: np.ndarray, t_inv: np.ndarray,
+                      res: Tuple[int, int]) -> np.ndarray:
+    """The plain warp: output pixel centres mapped by t_inv (float64) to
+    source coordinates, bilinear, zero outside the image."""
     ys, xs = np.meshgrid(np.arange(res[0]), np.arange(res[1]),
                          indexing='ij')
     # +0.5 pixel-center convention for the warp sample positions.

@@ -52,6 +52,7 @@ class Runtime(NamedTuple):
     contact: Optional[ContactAssets] = None
     prior: Optional[GMMPrior] = None
     contact_classes: tuple = ()
+    contact_csig: dict = {}            # region name -> vertex ids
     hd: Optional[HDAssets] = None      # with HD only
 
 
@@ -150,7 +151,8 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
          'region_mask_a': ma, 'region_mask_b': mb}, tables, device=dev)
     return runtime._replace(
         contact=contact, prior=create_gmm_prior(gmm, device=dev),
-        contact_classes=tuple(extras.contact_classes))
+        contact_classes=tuple(extras.contact_classes),
+        contact_csig=dict(extras.contact_csig))
 
 
 def _load_real_contact(with_segments: bool) -> assets_mod.ContactExtras:

@@ -8,8 +8,11 @@ HMR's eval-mode forward under no_grad, which neither moves the BatchNorm
 statistics nor draws from the dropout generator, so a run that validates
 and checkpoints resumes bit for bit on the CPU.
 
-Image summaries need a renderer (viz/, not ported): with none the trainer
-says so once and logs scalars only.
+With a renderer (viz/renderer.Renderer, as cli/train builds it) the
+trainer draws the predicted and the fitted body over the first image of the
+batch every summary_freq of an epoch (train/pred_shape, train/opt_shape,
+contact regions coloured where the sample has labels) and the predicted
+body after each validation (val/pred_shape).
 """
 
 import json
@@ -30,6 +33,7 @@ from tuch_tpu_torch.train import fits_store
 from tuch_tpu_torch.train.checkpoint import CheckpointManager
 from tuch_tpu_torch.train.module import (TuchAssets, init_train_state,
                                          make_train_step)
+from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 
 
 def freq_to_step(freq: float, total_steps: int) -> int:
@@ -42,10 +46,12 @@ def freq_to_step(freq: float, total_steps: int) -> int:
 
 class MetricsLogger:
     """Scalars as JSON lines in summary_dir/metrics.jsonl, and to
-    TensorBoard when torch.utils.tensorboard imports."""
+    TensorBoard when torch.utils.tensorboard imports; images to TensorBoard,
+    or without it as summary_dir/images/<tag>_<step>.png."""
 
     def __init__(self, summary_dir: str):
         os.makedirs(summary_dir, exist_ok=True)
+        self.summary_dir = summary_dir
         self.path = os.path.join(summary_dir, 'metrics.jsonl')
         self.tb = None
         try:
@@ -62,6 +68,17 @@ class MetricsLogger:
             for k, v in values.items():
                 self.tb.add_scalar(k, v, step)
 
+    def image(self, tag: str, img_hwc: np.ndarray, step: int):
+        """An (H, W, 3) image in [0, 1]."""
+        if self.tb is not None:
+            self.tb.add_image(tag, img_hwc, step, dataformats='HWC')
+            return
+        from tuch_tpu_torch.viz.renderer import save_png
+        out = os.path.join(self.summary_dir, 'images')
+        os.makedirs(out, exist_ok=True)
+        save_png(os.path.join(out, f'{tag.replace("/", "_")}_{step}.png'),
+                 img_hwc)
+
     def close(self):
         if self.tb is not None:
             self.tb.close()
@@ -70,11 +87,12 @@ class MetricsLogger:
 
 class Trainer:
     """The training loop around one HMR (its parameters and statistics are
-    the state's, updated in place) on `device` (CUDA unless 'cpu')."""
+    the state's, updated in place) on `device` (CUDA unless 'cpu'); image
+    summaries when a renderer is given."""
 
     def __init__(self, options, hmr, assets: TuchAssets, train_ds, val_ds,
                  j_regressor_h36m: Optional[np.ndarray] = None,
-                 device=None):
+                 device=None, renderer=None):
         cfg.check_ported(options)
         self.options = options
         self.device = resolve_device(device)
@@ -84,8 +102,7 @@ class Trainer:
         self.val_ds = val_ds
         self.joint_mapper_h36m = np.asarray(constants.H36M_TO_J14)
         self.j_regressor_h36m = j_regressor_h36m
-        print('[trainer] image summaries are not ported yet '
-              '(viz/renderer.py); logging scalars only', flush=True)
+        self.renderer = renderer
         self.logger = MetricsLogger(options.summary_dir)
         self.ckpt = CheckpointManager(options.checkpoint_dir)
         self.endtime = time.time() + options.time_to_run
@@ -174,6 +191,7 @@ class Trainer:
         nb = self.loader.num_batches()
         checkpoint_steps = freq_to_step(
             self.options.val_and_checkpoint_freq, nb)
+        summary_steps = freq_to_step(self.options.summary_freq, nb)
         start = self.loader_state.batch_idx \
             if self.loader_state.epoch == epoch else 0
         state_iter = LoaderState(epoch=epoch, batch_idx=start,
@@ -199,7 +217,8 @@ class Trainer:
                     prof.stop()
                     prof = None
                 batch = add_fits_indices(batch, self.offsets_table)
-                self.state, metrics, _ = self.step_fn(self.state, batch)
+                self.state, metrics, outputs = self.step_fn(self.state,
+                                                            batch)
                 step += 1
                 if pending is not None:
                     self._log_train_metrics(*pending)
@@ -208,6 +227,8 @@ class Trainer:
                 metrics['steps_per_sec'] = 1.0 / max(now - t_last, 1e-9)
                 t_last = now
                 pending = (metrics, step, epoch, bi)
+                if self.renderer is not None and step % summary_steps == 0:
+                    self._image_summaries(batch, outputs, step)
 
                 saved_this_step = step % checkpoint_steps == 0
                 if saved_this_step:
@@ -250,15 +271,16 @@ class Trainer:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def _val_forward(self, batch):
-        """(predicted, ground-truth) vertices of a batch as numpy, from the
-        HMR's eval-mode forward."""
+        """(predicted vertices, ground-truth vertices, predicted camera
+        translation) of a batch as numpy, from the HMR's eval-mode
+        forward."""
         smpl = self.assets.smpl
         dev = self.state.fits.device
         was_training = self.model.training
         self.model.eval()
         try:
-            rotmat, betas, _ = self.model(torch.as_tensor(batch['img'],
-                                                          device=dev))
+            rotmat, betas, cam = self.model(torch.as_tensor(batch['img'],
+                                                            device=dev))
         finally:
             self.model.train(was_training)
         pred = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
@@ -266,7 +288,10 @@ class Trainer:
         gt = smpl_forward_pose72(
             smpl, torch.as_tensor(batch['betas'], device=dev),
             torch.as_tensor(batch['pose'], device=dev))
-        return pred.vertices.cpu().numpy(), gt.vertices.cpu().numpy()
+        cam_t = weak_perspective_to_translation(
+            cam, constants.FOCAL_LENGTH, self.options.img_res)
+        return (pred.vertices.cpu().numpy(), gt.vertices.cpu().numpy(),
+                cam_t.cpu().numpy())
 
     def validate(self, step: int) -> float:
         """v2v and MPJPE on the validation set, in mm (trainer.py:172-267):
@@ -280,8 +305,11 @@ class Trainer:
         have_regressor = self.j_regressor_h36m is not None
         joint_metric = 'mpjpe' if have_regressor else 'mpjpe_v2v_proxy'
         mpjpe_all, v2v_all = [], []
+        first = None
         for batch in loader.epoch_iter(LoaderState(0, 0, 0)):
-            pred_v, gt_v = self._val_forward(batch)
+            pred_v, gt_v, cam_t = self._val_forward(batch)
+            if first is None:
+                first = (batch['img'][0], pred_v[0], cam_t[0])
             if have_regressor:
                 J = self.j_regressor_h36m
                 pred_j = np.einsum('jv,bvd->bjd', J, pred_v)
@@ -300,7 +328,32 @@ class Trainer:
         self.logger.scalars('val', {joint_metric: mpjpe, 'v2v': v2v}, step)
         print(f'[val] {joint_metric} {mpjpe:.2f}mm v2v {v2v:.2f}mm',
               flush=True)
+        if self.renderer is not None:
+            img, verts, cam_t = first
+            self.logger.image('val/pred_shape', self.renderer.render_over(
+                verts, cam_t, _denorm(img)), step)
         return mpjpe
+
+    def _image_summaries(self, batch, outputs, step: int):
+        """The predicted and the fitted body over the batch's first image,
+        contact regions coloured where it has labels."""
+        first = {k: outputs[k][0].cpu().numpy() for k in (
+            'pred_vertices', 'opt_vertices', 'pred_cam_t', 'opt_cam_t',
+            'gt_contact_l3', 'has_contact')}
+        img = _denorm(np.asarray(batch['img'][0]))
+        cv = first['gt_contact_l3'] if first['has_contact'] else None
+        for tag, verts, cam_t in (
+                ('pred', first['pred_vertices'], first['pred_cam_t']),
+                ('opt', first['opt_vertices'], first['opt_cam_t'])):
+            self.logger.image(f'train/{tag}_shape', self.renderer.render_over(
+                verts, cam_t, img, contact_vec=cv), step)
+
+
+def _denorm(img: np.ndarray) -> np.ndarray:
+    """A normalised (H, W, 3) image back in [0, 1]."""
+    mean = np.asarray(constants.IMG_NORM_MEAN, np.float32)
+    std = np.asarray(constants.IMG_NORM_STD, np.float32)
+    return np.clip(img * std + mean, 0, 1)
 
 
 def _start_profile(summary_dir: str):
