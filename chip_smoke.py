@@ -100,9 +100,10 @@ the flags a user types:
              (loader wait, step_fn, validation and checkpoint times): A,
              ResNet-50, each step's launches as phase 12's, finite losses,
              a metrics line per step, 2 checkpoints and the fits files; B,
-             A again (the card's run-to-run noise); C, A resumed from its
-             step-2 checkpoint: each part of its state (parameters, Adam's
-             moments, fits) within RESUME_BAR of A's, the loss of its steps
+             A again; C, A resumed from its step-2 checkpoint: each part
+             of B's and C's state (parameters, Adam's moments, fits)
+             within RESUME_BAR of A's (0: bit for bit, cli/train runs the
+             card deterministically), the loss of C's steps
              3-4 at TRAIN_LOSS_RTOL; D, ViT-S/16 with
              --compute_dtype bfloat16, 2 steps then the time-budget exit,
              kernel 1's bf16 launches counted. Each run's counts are set to
@@ -130,8 +131,24 @@ and EFT and the demo and rendering path, through their entry points:
              forward, renders, file writes), and one crop at 224 px by the
              native warp and by the numpy warp.
 
+and the offline tools and the real-format path:
+
+ 17. smplx   cli/smplx_to_smpl's convert_folder on a shard of 64 bodies of
+             the full body posed from a seed: every output pkl, each
+             body's loss below half its start, ms per step and per shard,
+             peak memory, one profiled 20-step fit (device busy, idle
+             share); the card against the CPU after 20 steps on 4 bodies.
+ 18. real    cli/preprocess --synthetic (host only) onto a real-format
+             asset tree of the full-topology body (6890-vertex SMPL
+             pickles, geodesics, DSC tables, segments, HD regressor), then
+             one cli/train --run_smplify step without --synthetic on its
+             databases (ResNet-50, B=2, 2 fit iterations; kernels 2, 4, 5
+             and 6 launched as phase 12 counts) and cli/eval on its 3DPW
+             test database, each card against CPU.
+
 `python3 chip_smoke.py --trainer` runs phases 1, 6b, 12 (ResNet-50 times),
-13 and 14 alone (~2.5 minutes, against the whole smoke's ~10) and prints
+13 and 14 alone (~2.5 minutes, against the whole smoke's ~12) and
+`--offline` runs phases 1, 7, 17 and 18 alone (~2.5 minutes); both print
 no result lines. Weights and bodies are random from fixed seeds. The last
 two lines of standard output are the kernel summary and {"ok": true, "device": {...}} as
 JSON; the line before them is the card's name and power limit from
@@ -192,7 +209,8 @@ PLAIN_CHUNK = 16                 # the plain versions run B=64 in 4 batches
 PARITY_B, PARITY_ITERS = 2, 4    # card vs CPU; the CPU side stays ~1 minute
 WN_ATOL, WN_BAND = 2e-5, 1e-4    # winding: values; in/out at 0.99 outside
 D2_RTOL = 1e-6                   # masked min: d2, and argmin ties
-SCATTER_RTOL = 1e-5              # scatter vs index_add_ (atomic order)
+SCATTER_ATOL = 0.0               # scatter vs index_add_ on the CPU: both
+                                 # add each row in ascending q
 WINDING_OPS_PER_PAIR = 67        # counted in csrc/solid_angle.cuh
 MASKED_OPS_ALLOWED = 9           # + 1 mask test per pair, csrc/masked_min.cu
 DEV = 'cuda'                     # where the slice phases run
@@ -219,19 +237,15 @@ TRAIN_TIMED = 5                  # timed steps after 2 warm-up and 1 counted
 HMR_OPTION_ATOL = 2e-4
 # the trainer (phase 13): run logs and checkpoints (gitignored)
 TRAIN_LOG_DIR = os.path.join('build', 'chip_smoke_train')
-# a resume (run C) against the straight run (A), per part: max abs relative
-# to each tensor's largest. Kernel 6's float atomics and cuDNN's backward
-# are not bitwise deterministic, so two runs differ in two modes: on an H100
-# (80GB HBM3, 700 W; tools/resume_noise.py and phase 13, 26 runs of A
-# again or resumed) the parameters read 0 or 3.513e-3 (one Adam update of
-# about lr on one element, flipped), Adam's mu 0 or 1.274e-3, nu 0 or
-# 1.339e-3. The fits read 6.8e-8 to 8.3e-6 on crops of the numpy warp and,
-# since the crop takes the native warp (other pixels, other fits), 7.5e-8
-# to 1.321e-4 in 7 resumes (while a run of A again, B, flipped a fit's
-# accept decision at step 2 in 3 of 6 and moved the fits 0.17). Each bar is
-# 4x the largest reading of a resume (rounded up); a resume that lost
-# Adam's moments, the fits or the dropout generator moves its part by O(1).
-RESUME_BAR = {'params': 1.5e-2, 'mu': 6e-3, 'nu': 6e-3, 'fits': 6e-4}
+# a run of A again (B) and a resume (C) against the straight run (A), per
+# part: max abs relative to each tensor's largest. cli/train runs the card
+# deterministically (runtime.deterministic: torch's deterministic
+# algorithms, cuDNN's deterministic convolutions, kernel 6 in a fixed
+# order), so B and C repeat A bit for bit: 0 in every part in all 12 runs
+# of tools/determinism_settings.py's setting d on an H100 (80GB HBM3,
+# 700 W). Before, B moved the parameters by 1.156 in 3 of 6 runs (a fit's
+# accept decision flipped at step 2) and C's fits by up to 1.32e-4.
+RESUME_BAR = {'params': 0.0, 'mu': 0.0, 'nu': 0.0, 'fits': 0.0}
 EVAL_BN_FOLD_MM = 0.01           # cli/eval report, --bn_fold against not
 # EFT (phase 15): cli/fit_eft --synthetic fits its 4-sample database; the
 # exact launches of one fit step; the card against the CPU over 3 steps
@@ -249,6 +263,26 @@ DEMO_FILES = ('.obj', '_r60.obj', '_r300.obj', '_camera.pkl', '_img_in.png',
               '.png')
 DEMO_TIMED_IMAGES = 8
 CROP_TIMED = 50
+
+# smplx_to_smpl (phase 17): cli/smplx_to_smpl's convert_folder on one
+# shard of bodies of the full-topology body posed from a seed, for 1000 of
+# the reference's 5000 steps (host-bound at ~11 ms a step on an H100: the
+# 5000 took 54 s, and the smoke aims at half its time limit); the card
+# against the CPU after a few steps on a few of them: pose and betas at
+# 1e-4, the per-sample loss at rtol 1e-4 (the 20-step bars of
+# tests/test_torch_port_smplx_to_smpl.py; on the CPU the fit moved 1.3e-6
+# between 1 and 8 threads at this size, tools/smplx_fit_spread.py)
+SMPLX_DIR = os.path.join('build', 'chip_smoke_smplx')
+SMPLX_SHARD, SMPLX_STEPS, SMPLX_PROFILED_STEPS = 64, 1000, 20
+SMPLX_REFERENCE_STEPS, SMPLX_AB_STEPS = 5000, 200
+SMPLX_PARITY_BODIES, SMPLX_PARITY_STEPS = 4, 20
+SMPLX_ATOL, SMPLX_LOSS_RTOL = 1e-4, 1e-4
+# the port's own data (phase 18): cli/preprocess --synthetic's databases on
+# a real-format asset tree of the full-topology body; one cli/train step
+# (ResNet-50, B=2 at 224 px, 2 fit iterations: the CPU side stays ~1
+# minute) and cli/eval on the 3DPW test database, card against CPU
+REAL_DIR = os.path.join('build', 'chip_smoke_real')
+REAL_B, REAL_ITERS, REAL_HD_POINTS = 2, 2, 1024
 
 # torch.profiler: the runtime calls that launch a kernel (by prefix), and
 # the one-call captures taken before one that lost its kernel's record
@@ -767,6 +801,29 @@ def _hold_masked_min(label, verts, mask, bits):
     return err, arg
 
 
+def _hold_scatter(label, idx, V, seed):
+    """Kernel 6 on randn contributions against the plain version on the
+    CPU (index_add_ there adds each row in ascending q, as the kernel does:
+    bit for bit, SCATTER_ATOL 0), and a second launch on the same input
+    against the first (bit for bit). Returns the largest error."""
+    from tuch_tpu_torch.ops import gather as G
+    B = idx.shape[0]
+    contrib = torch.randn(B, idx.shape[1], 3, device=idx.device,
+                          generator=torch.Generator(idx.device)
+                          .manual_seed(seed))
+    first = G.scatter_add_rows_cuda(contrib, idx, V)
+    again = G.scatter_add_rows_cuda(contrib, idx, V)
+    want = G.scatter_add_rows_ref(contrib.cpu(), idx.cpu(), V)
+    e = (first.cpu() - want).abs().max().item()
+    repeat = torch.equal(first, again)
+    print(f'[kernel] scatter_add {label} V={V} Q={idx.shape[1]}: max_abs_err '
+          f'{e:.3g} against the plain version on the CPU (tol '
+          f'{SCATTER_ATOL}), two launches bit for bit {repeat}', flush=True)
+    check(e <= SCATTER_ATOL and repeat,
+          f'scatter_add {label}: err {e}, repeat {repeat}')
+    return e
+
+
 def _chunked(fn, *tensors):
     """The plain version over a B=64 input in batches of PLAIN_CHUNK (its
     intermediates at B=64 would need tens of GB)."""
@@ -803,24 +860,13 @@ def phase_slice_kernels(runtime, results):
             idx[1, :3] = V
         got = G.gather_rows_cuda(verts, idx)
         want = G.gather_rows_ref(verts, idx)
-        # multiples of 2^-10 below 2 in magnitude: every row's sum is exact
-        # in fp32 whatever the order of the kernel's atomic additions, so
-        # the comparison cannot turn on that order
-        contrib = torch.randint(-2047, 2048, (B, V, 3), device=verts.device,
-                                generator=torch.Generator(verts.device)
-                                .manual_seed(B)) / 1024.0
-        sc = G.scatter_add_rows_cuda(contrib, idx, V)
-        sc_want = G.scatter_add_rows_ref(contrib, idx, V)
         torch.cuda.synchronize()
         bitwise = torch.equal(got, want)
-        e_sc = (sc - sc_want).abs().max().item()
-        sc_ok = ((sc - sc_want).abs()
-                 <= SCATTER_RTOL * sc_want.abs() + 1e-6).all().item()
         print(f'[kernel] gather B={B} V={V} Q={V} (with -1 and V indices): '
-              f'bitwise equal {bitwise}; scatter_add: max_abs_err '
-              f'{e_sc:.3g} (rtol {SCATTER_RTOL} vs index_add_)', flush=True)
-        check(bitwise and sc_ok, f'gather {bitwise}, scatter {sc_ok}')
-        err['scatter_add'] = max(err['scatter_add'], e_sc)
+              f'bitwise equal {bitwise}', flush=True)
+        check(bitwise, f'gather {bitwise}')
+        err['scatter_add'] = max(err['scatter_add'], _hold_scatter(
+            f'B={B} (with -1 and V indices)', idx, V, seed=B))
 
     # times at the training batch
     B = TRAIN_B
@@ -843,6 +889,8 @@ def phase_slice_kernels(runtime, results):
     results['winding'] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                               bound_ms=bound_ms, bound_by=bound_by,
                               max_abs_err=err['winding'])
+    err['scatter_add'] = max(err['scatter_add'], _hold_scatter(
+        f'posed B={B}', idx, V, seed=B))
     for b in (FIT_IMAGES, TRAIN_B):
         _time_masked_min(verts[:b].contiguous(), mask, bits, results, err)
     _time_rows(verts, idx, results, err)
@@ -2016,8 +2064,8 @@ def _loss_gaps(got, want, steps):
 
 def phase_train_loop(runtime, card, bare_ms):
     """cli/train at full width on the card, in this process, with the
-    flags a user types (train_argv): runs A, B (A again: the card's
-    run-to-run noise), C (A resumed from its step-2 checkpoint) with
+    flags a user types (train_argv): runs A, B (A again: it must repeat
+    A), C (A resumed from its step-2 checkpoint) with
     ResNet-50, and D (ViT-S/16, --compute_dtype bfloat16, 2 steps, then
     the time-budget exit). Each run drives the port's main path with every
     count set to 0 before it and read after it."""
@@ -2091,7 +2139,7 @@ def phase_train_loop(runtime, card, bare_ms):
     parts_c, eq_c = _distance(_state_tensors(C), want)
     recs_b, _ = _train_records(B)
     recs_c, _ = _train_records(C)
-    # B measures the card's noise; C must continue A: its steps' losses
+    # B repeats A; C must continue A: its steps' losses
     loss_b = _loss_gaps(recs_b, recs_a, (1, 2, 3, 4))
     loss_c = _loss_gaps(recs_c, recs_a, (3, 4))
     # what no noise touches: Adam's count and the dropout generator (its
@@ -2116,8 +2164,9 @@ def phase_train_loop(runtime, card, bare_ms):
     check(same_count and same_gen,
           'C\'s Adam count or dropout generator differs from A\'s')
     for part, bar in RESUME_BAR.items():
-        check(parts_c[part] <= bar, f'C\'s {part} lie {parts_c[part]} '
-              f'from A\'s, over the bar {bar}')
+        for tag, parts in (('B', parts_b), ('C', parts_c)):
+            check(parts[part] <= bar, f'{tag}\'s {part} lie {parts[part]} '
+                  f'from A\'s, over the bar {bar}')
 
     mha_per_forward = VIT_S16_DEPTH
     D, rec_d, total_d = train_run(
@@ -2488,6 +2537,462 @@ def phase_demo(card):
     shutil.rmtree(DEMO_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The offline tools and the real-format path (phases 17 and 18)
+# ---------------------------------------------------------------------------
+
+def write_smplx_shard(folder, smpl, n, seed):
+    """`n` smplx-format pkls (cli/smplx_to_smpl's input) of bodies posed
+    and shaped from a seed, on SMPL's topology: the vertices of the body,
+    its global orientation, and a body pose 0.1 rad (per component) off
+    the body's own, as an SMPL-X fit's differs from the SMPL pose that
+    makes its vertices. Returns (folder of the pkls, targets, init poses)
+    as convert_folder reads them."""
+    import pickle
+
+    from tuch_tpu_torch.cli import smplx_to_smpl as X
+    from tuch_tpu_torch.models.smpl import smpl_forward_pose72
+    rng = np.random.RandomState(seed)
+    pose = (rng.randn(n, 72) * 0.3).astype(np.float32)
+    betas = (rng.randn(n, 10) * 0.5).astype(np.float32)
+    off = pose + (rng.randn(n, 72) * 0.1).astype(np.float32)
+    with torch.no_grad():
+        verts = smpl_forward_pose72(
+            smpl, torch.as_tensor(betas, device=DEV),
+            torch.as_tensor(pose, device=DEV)).vertices.cpu().numpy()
+    folder = os.path.join(folder, 'smplx', 'params')
+    os.makedirs(folder)
+    inits = []
+    for i in range(n):
+        with open(os.path.join(folder, f'{i:03d}.pkl'), 'wb') as f:
+            pickle.dump({'vertices': verts[i], 'body_pose': off[i, 3:66],
+                         'global_orient': pose[i, :3]}, f)
+        inits.append(X._init_pose_from_smplx(off[i, 3:66], pose[i, :3]))
+    return folder, verts, np.stack(inits)
+
+
+def phase_smplx_to_smpl(card):
+    """Phase 17 (_smplx_to_smpl) with torch's deterministic algorithms off:
+    cli/smplx_to_smpl leaves that mode as it finds it, and phase 13 turned
+    it on for this process (runtime.deterministic), so it is off here, as a
+    user of the CLI runs it, and restored after."""
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(False)
+    try:
+        _smplx_to_smpl(card)
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+        shutil.rmtree(SMPLX_DIR, ignore_errors=True)
+
+
+def _smplx_to_smpl(card):
+    """cli/smplx_to_smpl's convert_folder on the card at full width: a
+    shard of SMPLX_SHARD bodies of the full-topology body posed from a seed
+    (write_smplx_shard), SMPLX_STEPS Adam steps: ms per shard and per step
+    (host clock; the fit ends in a copy to the host), the peak memory,
+    every output pkl written and each body's loss below half its start;
+    one fit of SMPLX_PROFILED_STEPS steps under torch.profiler
+    (device busy, idle share, top kernels); fits of SMPLX_AB_STEPS steps
+    with torch's deterministic algorithms off and on, in turns (what the
+    training entry points' runtime.deterministic costs an eager host-bound
+    loop); then the card against the CPU after SMPLX_PARITY_STEPS steps on
+    SMPLX_PARITY_BODIES bodies (TF32 off)."""
+    import contextlib
+    import pickle
+
+    from tuch_tpu_torch import assets
+    from tuch_tpu_torch.cli import smplx_to_smpl as X
+    from tuch_tpu_torch.fitting.smplx_to_smpl import fit_smpl_to_vertices
+    from tuch_tpu_torch.models.smpl import SMPL
+    smpl = SMPL(assets.synthetic_smpl()[0]).to(DEV)
+    shutil.rmtree(SMPLX_DIR, ignore_errors=True)
+    folder, *arrays = write_smplx_shard(SMPLX_DIR, smpl, SMPLX_SHARD, 17)
+    targets, inits = (torch.as_tensor(a, device=DEV) for a in arrays)
+    start = fit_smpl_to_vertices(smpl, targets, init_pose=inits,
+                                 num_steps=0, fit_translation=True).loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        outs = X.convert_folder(folder, None, smpl, num_steps=SMPLX_STEPS)
+    shard_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    errs = np.array([float(ln.rsplit('err ', 1)[1].rstrip(')'))
+                     for ln in log.getvalue().splitlines() if 'err ' in ln])
+    check(len(outs) == SMPLX_SHARD and len(errs) == SMPLX_SHARD,
+          f'smplx_to_smpl wrote {len(outs)} pkls')
+    for path in outs:
+        with open(path, 'rb') as f:
+            out = pickle.load(f)
+        check('/smpl/' in path and out['pose'].shape == (72,)
+              and out['betas'].shape == (10,)
+              and out['pose'].dtype == np.float64
+              and np.isfinite(out['pose']).all()
+              and np.isfinite(out['betas']).all(), f'smplx_to_smpl {path}')
+    # the fit at least halves every body's mean vertex distance
+    below = errs < 0.5 * start.cpu().numpy()
+    check(bool(np.isfinite(errs).all() and below.all()),
+          f'smplx_to_smpl: loss not below half its start for '
+          f'{int((~below).sum())} bodies')
+    wall, prof = profiled(lambda: fit_smpl_to_vertices(
+        smpl, targets, init_pose=inits, num_steps=SMPLX_PROFILED_STEPS,
+        fit_translation=True).loss.cpu())
+    busy, top = kernel_rows(prof, top=5)
+    print(f'[times smplx_to_smpl] cli/smplx_to_smpl shard of {SMPLX_SHARD} '
+          f'bodies x 6890 vertices, {SMPLX_STEPS} Adam steps (the '
+          f'reference runs {SMPLX_REFERENCE_STEPS}): {shard_ms:.3f} ms per '
+          f'shard, '
+          f'{shard_ms / SMPLX_STEPS:.4f} ms per step (host clock); peak '
+          f'memory {peak:.3f} GiB; loss (mean vertex distance, m) start '
+          f'{float(start.mean()):.4g}, end median {np.median(errs):.4g}, '
+          f'max {errs.max():.4g}; one fit of {SMPLX_PROFILED_STEPS} steps '
+          f'profiled: host wall {wall:.3f} ms, device busy {busy:.3f} ms '
+          f'({busy / SMPLX_PROFILED_STEPS:.4f} ms a step), idle share '
+          f'{1 - busy / wall:.1%}; top kernels '
+          + ', '.join(f'{n} {ms:.3f} ms x{c}' for n, ms, c in top)
+          + f'; card: {card}', flush=True)
+
+    ab = {False: [], True: []}
+    for det in (False, True, True, False):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_smpl_to_vertices(smpl, targets, init_pose=inits,
+                             num_steps=SMPLX_AB_STEPS,
+                             fit_translation=True).loss.cpu()
+        ab[det].append(1e3 * (time.perf_counter() - t0) / SMPLX_AB_STEPS)
+    torch.use_deterministic_algorithms(False)
+    print(f'[times smplx_to_smpl determinism] ms per step over '
+          f'{SMPLX_AB_STEPS} steps, in turns off, on, on, off (host clock): '
+          f'deterministic algorithms off {[round(x, 4) for x in ab[False]]}'
+          f', on {[round(x, 4) for x in ab[True]]}; card: {card}',
+          flush=True)
+
+    n = SMPLX_PARITY_BODIES
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = fit_smpl_to_vertices(smpl, targets[:n], init_pose=inits[:n],
+                                   num_steps=SMPLX_PARITY_STEPS,
+                                   fit_translation=True)
+        smpl_cpu = copy.deepcopy(smpl).cpu()
+        smpl_cpu.parents = smpl.parents
+        want = fit_smpl_to_vertices(smpl_cpu, targets[:n].cpu(),
+                                    init_pose=inits[:n].cpu(),
+                                    num_steps=SMPLX_PARITY_STEPS,
+                                    fit_translation=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    d = {k: float((g.cpu() - w).abs().max())
+         for k, g, w in zip(('pose', 'betas', 'loss'), got, want)}
+    rel = float(((got.loss.cpu() - want.loss).abs() / want.loss).max())
+    print(f'[parity smplx_to_smpl] {n} bodies, {SMPLX_PARITY_STEPS} steps, '
+          f'card against CPU (TF32 off): pose {d["pose"]:.3g}, betas '
+          f'{d["betas"]:.3g} (bar {SMPLX_ATOL}), loss relative {rel:.3g} '
+          f'(bar {SMPLX_LOSS_RTOL})', flush=True)
+    check(d['pose'] <= SMPLX_ATOL and d['betas'] <= SMPLX_ATOL
+          and rel <= SMPLX_LOSS_RTOL, f'smplx_to_smpl card vs CPU {d}, {rel}')
+
+
+def _write_ply(path, verts, red_ids):
+    """An ascii PLY with red 255 on `red_ids` (a body segment's file)."""
+    red = np.zeros(len(verts), np.uint8)
+    red[np.asarray(red_ids)] = 255
+    with open(path, 'w') as f:
+        f.write(f'ply\nformat ascii 1.0\nelement vertex {len(verts)}\n'
+                'property float x\nproperty float y\nproperty float z\n'
+                'property uchar red\nproperty uchar green\n'
+                'property uchar blue\nend_header\n')
+        for (x, y, z), r in zip(verts, red):
+            f.write(f'{x} {y} {z} {r} 0 0\n')
+
+
+def real_format_tree(root):
+    """The real assets' files in their reference layout for the synthetic
+    full-topology body (6890 vertices, 13776 faces), written from the
+    port's synthetic assets, and the port's config pointed at them: the
+    SMPL pickles (neutral, male and female), the extra and H36M joint
+    regressors, mean params, GMM prior, geodesics, the DSC region tables
+    over the body parts that cli/preprocess --synthetic's DSC databases
+    index (each part one of the body's contact regions), two body segments
+    and an HD regressor of REAL_HD_POINTS face barycentres. Returns the
+    ContactExtras."""
+    import pickle
+
+    from tuch_tpu_torch import assets, config as cfg
+    from tuch_tpu_torch.data.preprocess import synthetic_raw as sr
+    model, means = assets.synthetic_smpl()
+    extras = assets.synthetic_contact()
+    dirs = {k: os.path.join(root, *v.split('/')) for k, v in dict(
+        smpl='models/smpl', spin='essentials/spin',
+        geo='essentials/geodesics/smpl', dsc='dsc_release',
+        seg='essentials/segments/smpl', hd='essentials/hd_model/smpl').items()}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    kintree = np.zeros((2, len(model.parents)), np.int64)
+    kintree[0] = np.concatenate([[2 ** 32 - 1], model.parents[1:]])
+    body = dict(v_template=model.v_template, shapedirs=model.shapedirs,
+                posedirs=model.posedirs, J_regressor=model.J_regressor,
+                weights=model.lbs_weights, kintree_table=kintree,
+                f=model.faces)
+    for gender, seed in (('NEUTRAL', 0), ('MALE', 1), ('FEMALE', 2)):
+        v = assets.synthetic_smpl(seed=seed)[0].v_template
+        with open(os.path.join(dirs['smpl'], f'SMPL_{gender}.pkl'),
+                  'wb') as f:
+            pickle.dump(dict(body, v_template=v), f)
+    np.save(os.path.join(dirs['spin'], 'J_regressor_extra.npy'),
+            model.J_regressor_extra)
+    np.savez(os.path.join(dirs['spin'], 'smpl_mean_params.npz'),
+             pose=means.mean_pose6d[None], shape=means.mean_shape[None],
+             cam=means.mean_cam)
+    gmm = assets.synthetic_gmm_prior()
+    with open(os.path.join(dirs['spin'], 'gmm_08.pkl'), 'wb') as f:
+        pickle.dump({'means': gmm['means'], 'covars': gmm['covs'],
+                     'weights': gmm['weights']}, f)
+    np.save(os.path.join(dirs['geo'], 'smpl_neutral_geodesic_dist.npy'),
+            extras.geodists)
+    with open(os.path.join(dirs['dsc'], 'classes.pkl'), 'wb') as f:
+        pickle.dump([tuple(map(str, p)) for p in sr._bodypart_classes()], f)
+    with open(os.path.join(dirs['dsc'], 'ContactSigSMPL.pkl'), 'wb') as f:
+        pickle.dump({part: extras.contact_csig[f'reg{i}']
+                     for i, part in enumerate(sr.BODY_PARTS)}, f)
+    seg_py = 'segments = {\n'
+    for name, seg in list(extras.segments.items())[:2]:
+        bands = {f'band{k}': list(map(int, b))
+                 for k, b in enumerate(seg['bands_verts'])}
+        seg_py += f'    {name!r}: {bands!r},\n'
+        _write_ply(os.path.join(dirs['seg'], f'smpl_segment_{name}.ply'),
+                   model.v_template, seg['vidx'])
+    with open(os.path.join(dirs['seg'], 'segm_utils.py'), 'w') as f:
+        f.write(seg_py + '}\n')
+    rng = np.random.RandomState(18)
+    faces = rng.choice(len(model.faces), REAL_HD_POINTS, replace=False)
+    hd_reg = np.zeros((REAL_HD_POINTS, len(model.v_template)), np.float32)
+    hd_reg[np.arange(REAL_HD_POINTS)[:, None], model.faces[faces]] = 1 / 3
+    np.save(os.path.join(dirs['hd'], 'smpl_neutral_hd_vert_regressor.npy'),
+            hd_reg)
+    with open(os.path.join(dirs['hd'],
+                           'smpl_neutral_hd_sample_from_mesh_out.pkl'),
+              'wb') as f:
+        pickle.dump({'faces_vert_is_sampled_from': faces}, f)
+    np.save(os.path.join(root, 'J_regressor_h36m.npy'),
+            model.J_regressor[:17])
+    cfg.SMPL_MODEL_DIR = dirs['smpl']
+    cfg.JOINT_REGRESSOR_TRAIN_EXTRA = os.path.join(dirs['spin'],
+                                                   'J_regressor_extra.npy')
+    cfg.SMPL_MEAN_PARAMS = os.path.join(dirs['spin'], 'smpl_mean_params.npz')
+    cfg.PRIOR_FOLDER = dirs['spin']
+    cfg.GEODESICS_SMPL = os.path.join(dirs['geo'],
+                                      'smpl_neutral_geodesic_dist.npy')
+    cfg.DSC_ROOT, cfg.SEGMENT_DIR = dirs['dsc'], dirs['seg']
+    cfg.HD_MODEL_DIR = dirs['hd']
+    cfg.JOINT_REGRESSOR_H36M = os.path.join(root, 'J_regressor_h36m.npy')
+    return extras
+
+
+def real_databases(root):
+    """cli/preprocess --synthetic's databases (plain pickles) under root,
+    a random image for every sample they name (the raw trees hold
+    annotations only), the 3DPW contact signature, and the port's config
+    pointed at them (DATASET_FILES, IMAGE_FOLDERS, THREEDPW_CIG)."""
+    from PIL import Image
+
+    from tuch_tpu_torch import config as cfg
+    from tuch_tpu_torch.cli import preprocess
+    from tuch_tpu_torch.data.dataset import load_db
+    out = os.path.join(root, 'dbs')
+    preprocess.main(['--synthetic', '--out', out])
+    rng = np.random.RandomState(18)
+    for db_name, split, ds, folder, side in (
+            ('dsc_df_train', 'train', 'dsc_df', 'images/df', 320),
+            ('dsc_lsp_train', 'train', 'dsc_lsp', 'images/lsp', 400),
+            ('dsc_lspet_train', 'train', 'dsc_lspet', 'images/lspet', 400),
+            ('mtp_train', 'train', 'mtp', 'mtp/images', None),
+            ('mtp_val', 'val', 'mtp', 'mtp/images', None),
+            ('3dpw_test', 'test', '3dpw', '3dpw', 600)):
+        path = os.path.join(out, f'{db_name}.pt')
+        img_dir = os.path.join(out, 'raw', *folder.split('/'))
+        db = load_db(path)
+        for name in db['imgname'] if side else ():
+            f = os.path.join(img_dir, str(name))
+            os.makedirs(os.path.dirname(f), exist_ok=True)
+            Image.fromarray((rng.rand(side, side, 3) * 255).astype(
+                np.uint8)).save(f, format='PNG')
+        cfg.DATASET_FILES[split][ds] = path
+        cfg.IMAGE_FOLDERS[ds] = img_dir
+    cig = os.path.join(root, 'csig.npy')
+    np.save(cig, rng.rand(len(load_db(cfg.DATASET_FILES['test']['3dpw'])[
+        'imgname']), 3, 2))
+    cfg.THREEDPW_CIG = cig
+
+
+def _real_train_step(dev, masks, counters):
+    """One cli/train --run_smplify step without --synthetic on `dev`
+    (the time-budget exit after it), on the given dropout masks: (the
+    launches of each kernel in the step, the step's metrics, outputs, the
+    fits after it, the trainer)."""
+    from tuch_tpu_torch import config as cfgmod
+    from tuch_tpu_torch.cli import train as train_cli
+    opts = cfgmod.parse_config(cfgmod.TrainConfig, [
+        '--ds_names', 'dsc', 'mtp', '--ds_composition', '0.6', '0.4',
+        '--batch_size', str(REAL_B), '--num_epochs', '1', '--num_workers',
+        '0', '--val_and_checkpoint_freq', '0', '--run_smplify',
+        '--num_smplify_iters', str(REAL_ITERS), '--log_dir',
+        os.path.join(REAL_DIR, 'logs'), '--name', dev, '--device', dev])
+    tr = train_cli.build(opts)
+    tr.renderer = None
+    step_fn, seen = tr.step_fn, {}
+
+    def step(state, batch):
+        before = {k: c.launches for k, c in counters.items()}
+        state, metrics, outputs = step_fn(
+            state, batch, dropout=[tuple(m.to(dev) for m in pair)
+                                   for pair in masks])
+        if dev != 'cpu':
+            torch.cuda.synchronize()
+        seen.update(launches={k: c.launches - before[k]
+                              for k, c in counters.items()},
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    outputs=outputs, fits_index=batch['fits_index'])
+        tr.endtime = 0.0                 # the time-budget exit after it
+        return state, metrics, outputs
+    tr.step_fn = step
+    tr.fit()
+    tr.close()
+    return seen, tr.state.fits.cpu(), tr
+
+
+def phase_real_format(card):
+    """The port's own data on the card: cli/preprocess --synthetic (host
+    only) onto a real-format asset tree of the full-topology body
+    (real_format_tree, real_databases), then one cli/train --run_smplify
+    step without --synthetic (ResNet-50, B=REAL_B at 224 px, REAL_ITERS
+    fit iterations, the HD loss) on the card and on the CPU, on the same
+    dropout masks (TF32 off): the launches of kernels 2, 4, 5 and 6 on the
+    card, and phase 12's bars (every metric at TRAIN_LOSS_RTOL, the accept
+    mask equal, the fits rows and opt_vertices within VERTEX_TOL); then
+    cli/eval on the 3DPW test database on the card and on the CPU, each
+    sample's errors within VERTEX_TOL."""
+    from tuch_tpu_torch import config as cfg
+    from tuch_tpu_torch.models import hmr as hmr_mod
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    saved = {k: copy.deepcopy(getattr(cfg, k)) for k in (
+        'SMPL_MODEL_DIR', 'JOINT_REGRESSOR_TRAIN_EXTRA', 'SMPL_MEAN_PARAMS',
+        'PRIOR_FOLDER', 'GEODESICS_SMPL', 'DSC_ROOT', 'SEGMENT_DIR',
+        'HD_MODEL_DIR', 'JOINT_REGRESSOR_H36M', 'THREEDPW_CIG',
+        'DATASET_FILES', 'IMAGE_FOLDERS')}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        real_format_tree(REAL_DIR)
+        real_databases(REAL_DIR)
+        prep_s = time.perf_counter() - t0
+        masks = hmr_mod.draw_dropout_masks(
+            REAL_B, generator=torch.Generator().manual_seed(18))
+        counters = train_counters()
+        runs = {}
+        for dev in (DEV, 'cpu'):
+            t0 = time.perf_counter()
+            runs[dev] = _real_train_step(dev, masks, counters)
+            runs[dev] += (time.perf_counter() - t0,)
+        (card_run, card_fits, card_tr, card_s), (cpu_run, cpu_fits, _,
+                                                 cpu_s) = runs[DEV], \
+            runs['cpu']
+        per_step = train_launches('resnet50', REAL_ITERS)
+        check(card_run['outputs']['opt_vertices'].shape[1] == 6890,
+              'real-format step: not the full body')
+        check(card_run['launches'] == per_step,
+              f'real-format step launches {card_run["launches"]} != '
+              f'{per_step}')
+        check(all(np.isfinite(v) for v in card_run['metrics'].values()),
+              f'real-format step: non-finite metrics {card_run["metrics"]}')
+        # each metric's distance over its bar, rtol |w| + atol max(1, |w|)
+        gaps = {k: abs(card_run['metrics'][k] - w) / (
+            TRAIN_LOSS_RTOL * abs(w) + TRAIN_LOSS_ATOL * max(1.0, abs(w)))
+            for k, w in cpu_run['metrics'].items()}
+        rows = torch.as_tensor(np.asarray(card_run['fits_index'])).long()
+        acc = {d: r['outputs']['fit_accepted'].cpu()
+               for d, r in ((DEV, card_run), ('cpu', cpu_run))}
+        fits_err = float((card_fits - cpu_fits).abs().max())
+        vert_err = float((card_run['outputs']['opt_vertices'].cpu()
+                          - cpu_run['outputs']['opt_vertices']).abs().max())
+        print(f'[real format] cli/preprocess --synthetic and the '
+              f'real-format tree of the full body in {prep_s:.1f} s; '
+              f'cli/train --run_smplify without --synthetic, ResNet-50 '
+              f'B={REAL_B} at 224 px, {REAL_ITERS} fit iterations, HD: '
+              f'launches on the card {card_run["launches"]} (rows '
+              f'{rows.tolist()}, accepted {acc[DEV].tolist()}); card '
+              f'against CPU (TF32 off): metrics at {max(gaps.values()):.3g} '
+              f'of their bar (rtol {TRAIN_LOSS_RTOL}), accept '
+              f'mask equal {torch.equal(acc[DEV], acc["cpu"])}, fits '
+              f'{fits_err:.3g}, opt_vertices {vert_err:.3g} m (bar '
+              f'{VERTEX_TOL}); loss {card_run["metrics"]["loss"]:.6g}, '
+              f'loss_contact {card_run["metrics"]["loss_contact"]:.6g}; '
+              f'cli/train wall (build, load, step, checkpoint) card '
+              f'{card_s:.1f} s, CPU {cpu_s:.1f} s', flush=True)
+        check(max(gaps.values()) <= 1.0,
+              f'real-format step metrics card vs CPU {gaps}')
+        check(torch.equal(acc[DEV], acc['cpu'])
+              and fits_err <= VERTEX_TOL and vert_err <= VERTEX_TOL,
+              f'real-format step: accept {acc}, fits {fits_err}, '
+              f'vertices {vert_err}')
+
+        ckpt = card_tr.ckpt.latest()
+        for dev in (DEV, 'cpu'):
+            _eval_main(['--dataset', '3dpw', '--checkpoint', ckpt,
+                        '--batch_size', '4', '--num_workers', '0',
+                        '--log_freq', '1000', '--result_file',
+                        f'eval_real_{dev}.npz'], dev)
+        card_e, cpu_e = (np.load(os.path.join('out', f'eval_real_{d}.npz'))
+                         for d in (DEV, 'cpu'))
+        errs = {k: float(np.abs(card_e[k] - cpu_e[k]).max())
+                for k in ('mpjpe', 'recon_err')}
+        for d in (DEV, 'cpu'):
+            os.remove(os.path.join('out', f'eval_real_{d}.npz'))
+        check(all(np.isfinite(card_e[k]).all() for k in errs)
+              and len(card_e['mpjpe']) > 0, 'real-format eval: no results')
+        print(f'[real format eval] cli/eval --dataset 3dpw (the 3DPW test '
+              f'database of cli/preprocess, {len(card_e["mpjpe"])} samples, '
+              f'gendered bodies) on the step\'s checkpoint: card against CPU '
+              f'max abs per-sample difference (m) {errs} (bar '
+              f'{VERTEX_TOL}); mean mpjpe {1e3 * card_e["mpjpe"].mean():.3f}'
+              f' mm', flush=True)
+        check(all(v <= VERTEX_TOL for v in errs.values()),
+              f'real-format eval card vs CPU {errs}')
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        for k, v in saved.items():
+            setattr(cfg, k, v)
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+
+
+def offline_phases(card):
+    """Phases 1, 7 (kernels 5 and 6 among them), 17 and 18 alone, with
+    their checks; no result lines."""
+    from tuch_tpu_torch import runtime as rt
+    t0 = time.perf_counter()
+    phase_build()
+    torch.backends.cudnn.allow_tf32 = False
+    fit_rt = rt.build_runtime(device=DEV, synthetic=True, with_contact=True)
+    phase_slice_kernels(fit_rt, {})
+    torch.backends.cudnn.allow_tf32 = True
+    del fit_rt
+    phase_smplx_to_smpl(card)
+    phase_real_format(card)
+    print(f'chip_smoke --offline: every check passed in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    return 0
+
+
 def trainer_phases(card):
     """Phases 1, 6b, 12's ResNet-50 times, 13 and 14 alone, with their
     checks; no result lines."""
@@ -2513,6 +3018,9 @@ def main(argv=None) -> int:
     p.add_argument('--trainer', action='store_true',
                    help='phases 1, 6b, 12 (ResNet-50 times), 13 and 14 '
                         'alone, with no result lines')
+    p.add_argument('--offline', action='store_true',
+                   help='phases 1, 7, 17 and 18 alone, with no result '
+                        'lines')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2524,6 +3032,8 @@ def main(argv=None) -> int:
           f'{torch.version.cuda}', flush=True)
     if args.trainer:
         return trainer_phases(card)
+    if args.offline:
+        return offline_phases(card)
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
     # are pinned off for phases 2-5, 7-9 and 12's parity and restored to
@@ -2581,6 +3091,11 @@ def main(argv=None) -> int:
     # phases 15 and 16: EFT, and the demo with its renders
     phase_eft(fit_rt, card)
     phase_demo(card)
+    # phases 17 and 18: the offline tools, and the port's own databases on
+    # the real-format path
+    del fit_rt
+    phase_smplx_to_smpl(card)
+    phase_real_format(card)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
     rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',

@@ -17,6 +17,8 @@ Also shared by the trainer and eval tests: `few_torch_threads`, and
 both packages read.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -156,7 +158,7 @@ class Pair:
                                     self.pr.contact, self.pr.hd)
         self.num_classes = len(self.jr.contact_classes)
         self._steps = {}
-        self._masks = jax.jit(self._masks_fn)
+        self._masks = jax.jit(partial(_jax_masks, self.jr.hmr))
 
     def options(self, **kw):
         kw = dict(batch_size=B, img_res=IMG, **kw)
@@ -185,23 +187,39 @@ class Pair:
         load_hmr_weights(hmr, PC.from_jax_variables(self.variables))
         return PM.init_train_state(hmr, torch.tensor(fits), lr)
 
-    def _masks_fn(self, variables, rng):
-        img = jnp.asarray(np.random.RandomState(9).randn(
-            B, IMG, IMG, 3).astype(np.float32))
-        _, state = self.jr.hmr.apply(
-            variables, img, train=True, rngs={'dropout': rng},
-            mutable=['batch_stats', 'intermediates'],
-            capture_intermediates=lambda m, _: isinstance(m, nn.Dropout))
-        inter = state['intermediates']
-        return [[out != 0 for out in inter[name]['__call__']]
-                for name in ('Dropout_0', 'Dropout_1')]
-
     def dropout_masks(self, jax_state):
         """The JAX step's keep-masks in draw_dropout_masks' layout."""
-        drop_rng = jax.random.split(jax_state.rng)[1]
-        d1, d2 = self._masks(self.variables, drop_rng)
-        return [(torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b)))
-                for a, b in zip(d1, d2)]
+        return _torch_masks(self._masks(self.variables,
+                                        jax.random.split(jax_state.rng)[1]))
+
+
+def _jax_masks(hmr, variables, rng, batch_size=B):
+    """The head's dropout outputs' non-zeros of a Flax HMR apply in train
+    mode with dropout key `rng` (they do not depend on the image)."""
+    img = jnp.asarray(np.random.RandomState(9).randn(
+        batch_size, IMG, IMG, 3).astype(np.float32))
+    _, state = hmr.apply(
+        variables, img, train=True, rngs={'dropout': rng},
+        mutable=['batch_stats', 'intermediates'],
+        capture_intermediates=lambda m, _: isinstance(m, nn.Dropout))
+    inter = state['intermediates']
+    return [[out != 0 for out in inter[name]['__call__']]
+            for name in ('Dropout_0', 'Dropout_1')]
+
+
+def _torch_masks(masks):
+    d1, d2 = masks
+    return [(torch.from_numpy(np.array(a)), torch.from_numpy(np.array(b)))
+            for a, b in zip(d1, d2)]
+
+
+def jax_dropout_masks(hmr, variables, jax_state, batch_size=B):
+    """The keep-masks that the JAX step (make_train_step with this Flax
+    `hmr`) draws from `jax_state` for a batch of `batch_size`, in
+    draw_dropout_masks' layout."""
+    return _torch_masks(_jax_masks(hmr, variables,
+                                   jax.random.split(jax_state.rng)[1],
+                                   batch_size))
 
 
 def snapshot(ps):
@@ -371,15 +389,17 @@ def accepted(fits0, fits1):
     return np.abs(np.asarray(fits1) - fits0).max(axis=1) > 0
 
 
-def assert_fits_and_vertices_close(js, jo, ps, po, fits0):
-    """The accept mask (read from the rows written), the fits rows and
+def assert_fits_and_vertices_close(js, jo, ps, po, fits0, rows=None):
+    """The accept mask (read from the rows written; `rows`, the batch's
+    fits_index, defaults to the first rows), the fits rows and
     opt_vertices."""
     jfits = np.asarray(js.fits)
     np.testing.assert_array_equal(accepted(fits0, ps['fits'].numpy()),
                                   accepted(fits0, jfits))
-    np.testing.assert_array_equal(
-        po['fit_accepted'].numpy(),
-        accepted(fits0, jfits)[:po['fit_accepted'].shape[0]])
+    if rows is None:
+        rows = np.arange(po['fit_accepted'].shape[0])
+    np.testing.assert_array_equal(po['fit_accepted'].numpy(),
+                                  accepted(fits0, jfits)[rows])
     np.testing.assert_allclose(ps['fits'].numpy(), jfits, rtol=0,
                                atol=VERTEX_ATOL)
     np.testing.assert_allclose(po['opt_vertices'].numpy(),

@@ -168,21 +168,24 @@ def test_split_covers_the_axis_in_whole_tiles():
         assert base * splits <= max(base, CK.TARGET_BLOCKS + base)
 
 
-@pytest.mark.parametrize('V,Q', [(6890, 6890), (2049, 1029), (300, 3000),
-                                 (5, 37), (1, 1)])
-@pytest.mark.parametrize('B', [1, 4, 64, 200])
-def test_scatter_plan_covers_the_rows_in_whole_slices_and_fills_the_sms(
-        B, V, Q):
-    """Kernel 6's plan: C blocks per batch item cover [0, V) in slices of S
-    rows and [0, Q) in runs of P contributions, no block past the last; as
-    many blocks as fill the SMs once, as far as clusters of at most 8 go."""
-    C, S, P = G.scatter_plan(B, V, Q)
-    assert 1 <= C <= G.MAX_CLUSTER
-    assert S * C >= V > S * (C - 1) and P * C >= Q
-    assert B * C <= max(B, G.SCATTER_BLOCKS)       # one wave
-    assert B * C >= min(G.SCATTER_BLOCKS // 2, B * G.MAX_CLUSTER, B * V)
-    if B <= 4 and V >= G.MAX_CLUSTER:
-        assert C == G.MAX_CLUSTER     # small batches: the largest cluster
+@pytest.mark.parametrize('V,Q,ok', [
+    (6890, 6890, True),           # the body: 55,248 bytes, above the 48 KB
+    (2049, 1029, True),           # that a block gets without opting in
+    (300, 3000, True), (5, 37, True), (1, 1, True),
+    (10475, 10475, True),         # SMPL-X's mesh
+    (58080, 0, True),             # the largest that fits: 232,448 bytes
+    (58081, 0, False),
+    (1, 58080, False),
+])
+def test_scatter_shared_memory_holds_counts_and_slots_or_refuses(V, Q, ok):
+    """Kernel 6 sorts one batch item's contributions by row in one block's
+    shared memory: 32 + V + Q ints, at most a block's 227 KB."""
+    assert G.scatter_shared_bytes(V, Q) == 4 * (32 + V + Q)
+    if ok:
+        G.check_shared(V, Q, 'scatter')
+    else:
+        with pytest.raises(ValueError, match='shared memory'):
+            G.check_shared(V, Q, 'scatter')
 
 
 @pytest.mark.parametrize('B,Q,V,ok', [
@@ -642,8 +645,9 @@ def test_masked_min_wrapper_refuses_a_bad_packing_on_card(cuda_device):
 @pytest.mark.cuda
 def test_gather_and_scatter_kernels_match_plain_versions_on_card(
         cuda_device):
-    """Gather bitwise (with -1 and V indices: zero rows); scatter at rtol
-    1e-5 against index_add_ (atomics add in varying order)."""
+    """Gather bitwise (with -1 and V indices: zero rows); scatter bit for
+    bit against the plain version on the CPU (both add each row's
+    contributions in ascending q), and against itself on a second launch."""
     rng = np.random.RandomState(3)
     B, V, Q = 3, 300, 1029
     vals = torch.from_numpy(rng.randn(B, V, 3).astype(np.float32)).to(
@@ -660,12 +664,13 @@ def test_gather_and_scatter_kernels_match_plain_versions_on_card(
     torch.cuda.synchronize()
     assert _launches()[2:] == (before[2] + 1, before[3] + 1)
     assert torch.equal(got, G.gather_rows_ref(vals, idx))
-    want = G.scatter_add_rows_ref(contrib, idx, V)
-    assert ((sc - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+    want = G.scatter_add_rows_ref(contrib.cpu(), idx.cpu(), V)
+    assert torch.equal(sc.cpu(), want)
+    assert torch.equal(G.scatter_add(contrib, idx, V), sc)
     assert (sc[:, 40:] == 0).all()
     v = vals.clone().requires_grad_(True)
     G.gather_rows(v, idx).backward(contrib)
-    assert ((v.grad - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+    assert torch.equal(v.grad.cpu(), want)
 
 
 def _row_case(kind, B, V, Q, rng):
@@ -693,29 +698,27 @@ def _row_case(kind, B, V, Q, rng):
 ])
 def test_gather_and_scatter_kernels_edge_cases_on_card(cuda_device, kind, B,
                                                        V, Q):
-    """Gather bitwise equal to the plain version, scatter at rtol 1e-5
-    (+1e-6) against index_add_, one launch each, at the shapes where the
-    kernels' tiles, slices and 16-byte stores have edges: spans that start
-    or end off a 16-byte boundary, a ragged last tile or slice, every index
-    out of range, every index on one row."""
+    """Gather bitwise equal to the plain version, scatter bit for bit equal
+    to the plain version on the CPU (randn contributions: both sum each row
+    in ascending q), one launch each, at the shapes where the kernels'
+    tiles, the scan's runs and the rows' slot lists have edges: a ragged
+    last tile, rows with no contribution, every index out of range, every
+    index on one row (one long list to sort)."""
     rng = np.random.RandomState(B * 100003 + V * 7 + Q)
     idx = torch.from_numpy(_row_case(kind, B, V, Q, rng)).to(cuda_device)
     vals = torch.from_numpy(rng.randn(B, V, 3).astype(np.float32)).to(
         cuda_device)
-    # multiples of 2^-10 below 2 in magnitude: every row's sum (at most
-    # 6890 terms) is exact in fp32 in any order of the additions, so the
-    # atomics' order cannot decide the comparison
-    contrib = torch.from_numpy((rng.randint(-2047, 2048, (B, Q, 3))
-                                / 1024.0).astype(np.float32)).to(cuda_device)
+    contrib = torch.from_numpy(rng.randn(B, Q, 3).astype(np.float32)).to(
+        cuda_device)
     before = _launches()
     got = G.gather_rows_cuda(vals, idx)
     sc = G.scatter_add_rows_cuda(contrib, idx, V)
     torch.cuda.synchronize()
     assert _launches()[2:] == (before[2] + 1, before[3] + 1)
     assert torch.equal(got, G.gather_rows_ref(vals, idx))
-    want = G.scatter_add_rows_ref(contrib, idx, V)
+    want = G.scatter_add_rows_ref(contrib.cpu(), idx.cpu(), V)
     assert sc.shape == (B, V, 3)
-    assert ((sc - want).abs() <= 1e-5 * want.abs() + 1e-6).all()
+    assert torch.equal(sc.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 // Earlier designs of kernel 6 (row scatter-add), kept so that
-// tools/slice_variants.py can time them beside csrc/gather.cu's kernel on
-// the same inputs. Not part of the package: nothing else builds this file.
+// tools/slice_variants.py can time them beside kernel 6 (csrc/gather.cu)
+// and its atomic form (tools/scatter_atomic.cu) on the same inputs. Not
+// part of the package: nothing else builds this file.
 //
 //   (default)      the first port's kernel: a cudaMemsetAsync of out, then
 //                  one thread per float and one global atomicAdd each.
@@ -14,8 +15,8 @@
 //                  the same with a plain += (wrong: races); only its time is
 //                  read, as the cost of the slices' streaming alone.
 //   TRIAL_ROW_VEC=4 or 1
-//                  csrc/gather.cu's clusters (zero, cluster barrier, add)
-//                  with a thread per contribution (row) instead of per
+//                  tools/scatter_atomic.cu's clusters (zero, cluster
+//                  barrier, add) with a thread per contribution (row), not per
 //                  float: float4 reductions where the row lies in one
 //                  16-byte word, the fourth lane adding +0 to a neighbouring
 //                  row of the same item, else a float2 and a float (1.5 per
@@ -23,7 +24,8 @@
 //
 // Entry: trial_scatter(contrib, idx, out, B, V, Q, S, stream) -> cudaError_t;
 // S is the slice's rows (TRIAL_SLICES) and is ignored otherwise; the row
-// trials take csrc/gather.cu's plan (clusters of min(8, 132 / B)).
+// trials take tools/scatter_atomic.cu's plan
+// (clusters of min(8, 132 / B)).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -4,11 +4,13 @@ time, by building variants of them.
 
     python3 tools/slice_variants.py      # from the repository root, one card
 
-Builds tuch_tpu_torch/csrc/winding.cu and csrc/gather.cu as they are and
-variants of each with nvcc, one set of text substitutions per variant
-(every occurrence, in the source and its copy of csrc/solid_angle.cuh,
-which holds kernel 2's pair), and kernel 6's earlier designs from
-tools/scatter_trials.cu, and times them on the SMPLify-DC slice's inputs:
+Builds tuch_tpu_torch/csrc/winding.cu as it is and variants of it with
+nvcc, one set of text substitutions per variant (every occurrence, in the
+source and its copy of csrc/solid_angle.cuh, which holds kernel 2's pair);
+kernel 6's earlier atomic form (tools/scatter_atomic.cu) and variants of
+it, its earlier designs from tools/scatter_trials.cu, and csrc/gather.cu's
+fixed-order kernel 6 as the package has it; and times them on the
+SMPLify-DC slice's inputs:
 the synthetic 6890-vertex body posed from a seed at B=64 (and B=4 for the
 scatter), its 13776 faces, and the masked nearest vertex of every vertex as
 the scatter's indices (as chip_smoke.py phase 7). Winding variants are held
@@ -16,7 +18,7 @@ against the plain version (max abs error, in/out flips at 0.99 outside
 |wn - 0.99| < 1e-4); the scatter variants marked "wrong" compute a wrong
 answer and only their time is read; the others must equal index_add_ (the
 contributions are multiples of 2^-10, so every order of the additions gives
-the same sums). Each variant of kernel 6 runs at several
+the same sums). Each variant of the atomic kernel runs at several
 cluster sizes. Scatter times are the median of five CUDA-graph replays of
 50 launches (device time), beside zero-fill + index_add_; winding times the
 median of three runs of three launches (CUDA events). Prints the card's
@@ -38,6 +40,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from tuch_tpu_torch.ops import _build  # noqa: E402
+
+sys.path.insert(0, str(ROOT / 'tools'))
+from determinism_settings import ATOMIC_BLOCKS  # noqa: E402
+from determinism_settings import plan as atomic_plan  # noqa: E402
 
 CSRC = ROOT / 'tuch_tpu_torch' / 'csrc'
 # kernel 2's pair is tuch::half_angle in csrc/solid_angle.cuh
@@ -69,7 +75,7 @@ WINDING = {
 }
 THREADS = 'constexpr int SCATTER_THREADS = 1024;'
 UNROLL = 'constexpr int SCATTER_UNROLL = 4;'
-# csrc/gather.cu's kernel: name -> substitutions
+# tools/scatter_atomic.cu's kernel: name -> substitutions
 SCATTER = {
     'kernel': [],
     '512 threads': [(THREADS, 'constexpr int SCATTER_THREADS = 512;')],
@@ -267,12 +273,14 @@ def scatter_variants(fns, trials, idx, V):
         print(f'[scatter B={B}] {variant}: {ms:.4f} ms, max abs err vs '
               f'index_add_ {err:.3g}{"" if err == 0 else " (WRONG)"}',
               flush=True)
-    clusters = sorted({c for c in (1, 2, 4, 8, G.scatter_plan(B, V, Q)[0])
-                       if B * c <= 4 * G.SCATTER_BLOCKS or c == 1})
+    report('csrc/gather.cu (fixed order)',
+           lambda: out.copy_(G.scatter_add_rows_cuda(contrib, idx, V)))
+    clusters = sorted({c for c in (1, 2, 4, 8, atomic_plan(B, V, Q)[0])
+                       if B * c <= 4 * ATOMIC_BLOCKS or c == 1})
     for variant, fn in fns.items():
         for C in clusters:
             plan = (C, -(-V // C), -(-Q // C))
-            tag = ' (the plan)' if plan == G.scatter_plan(B, V, Q) else ''
+            tag = ' (the plan)' if plan == atomic_plan(B, V, Q) else ''
 
             def call(fn=fn, plan=plan):
                 check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(),
@@ -310,13 +318,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         wind = start(Path(tmp), CSRC / 'winding.cu',
                      {k: v[0] for k, v in WINDING.items()})
-        scat_builds = start(Path(tmp), CSRC / 'gather.cu', SCATTER)
+        scat_builds = start(Path(tmp), ROOT / 'tools' / 'scatter_atomic.cu',
+                            SCATTER)
         trial = start(Path(tmp), ROOT / 'tools' / 'scatter_trials.cu', TRIALS,
                       flags=True)
         wind = finish('winding', wind, 'tuch_winding_numbers',
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_float, ctypes.c_void_p])
-        scat = finish('gather', scat_builds, 'tuch_scatter_add_rows',
+        scat = finish('scatter_atomic', scat_builds, 'tuch_scatter_add_rows',
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
         for variant, (lib, _) in scat_builds.items():

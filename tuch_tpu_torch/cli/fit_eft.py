@@ -79,6 +79,7 @@ def main(argv=None):
     from tuch_tpu_torch.fitting.eft import EFTFitter, merge_shards
 
     dev = resolve_device(args.device)
+    rt.deterministic(dev)
     runtime = rt.build_runtime(
         device=dev, synthetic=args.synthetic or None,
         num_verts=args.synthetic_num_verts or None, with_contact=True)

@@ -37,6 +37,7 @@ def build(options, runtime=None):
 
     cfg.check_ported(options)
     device = resolve_device(options.device)
+    rt.deterministic(device)
     if runtime is None:
         runtime = rt.build_runtime(
             device=device, synthetic=options.synthetic or None,

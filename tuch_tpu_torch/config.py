@@ -58,6 +58,7 @@ JOINT_REGRESSOR_H36M = os.path.join(
 STATIC_FITS_DIR = os.path.join(DATA_DIR, 'static_fits')
 THREEDPW_CIG = os.path.join(DATA_DIR, 'essentials/3dpw_test_csig_pc.npy')
 PRIOR_FOLDER = os.path.join(DATA_DIR, 'essentials/spin')
+SPIN_MODEL_CHECKPOINT = os.path.join(DATA_DIR, 'spin_model_checkpoint.pt')
 GEODESICS_SMPL = os.path.join(
     DATA_DIR, 'essentials/geodesics/smpl/smpl_neutral_geodesic_dist.npy')
 SEGMENT_DIR = os.path.join(DATA_DIR, 'essentials/segments/smpl')

@@ -82,6 +82,14 @@ J49_FLIP_PERM = [0, 1, 5, 6, 7, 2, 3, 4, 8, 12, 13, 14, 9, 10, 11, 16, 15,
                  18, 17, 22, 23, 24, 19, 20, 21] \
     + [25 + i for i in J24_FLIP_PERM]
 
+# COCO 17-keypoint ordering -> OpenPose BODY25 slots (used by preprocessing).
+COCO_TO_BODY25 = [0, 16, 15, 18, 17, 5, 2, 6, 3, 7, 4, 12, 9, 13, 10, 14, 11]
+# OpenPose COCO-18 ordering (nose, neck, rsho..lwri, rhip..lank, eyes,
+# ears) -> BODY25 slots. 3DPW's poses2d ships 18 joints in this order
+# (data/preprocess/pw3d.py).
+COCO18_TO_BODY25 = [0, 1, 2, 3, 4, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15,
+                    16, 17, 18]
+
 # SMPL surface vertex ids used as extra "joints" (the smplh vertex-id table),
 # appended after the 24 skeleton joints as joints 24..44 in this order.
 VERTEX_JOINT_IDS = {

@@ -9,16 +9,15 @@
 //   gather:  values (B, V, 3) f32, idx (B, Q) int32 -> out (B, Q, 3);
 //            an index outside [0, V) gives a zero row.
 //   scatter: contrib (B, Q, 3) f32, idx (B, Q) int32 -> out (B, V, 3), the
-//            sum of the contributions per index; an index outside [0, V) is
-//            dropped.
+//            sum of the contributions per index, each row's taken in
+//            ascending q; an index outside [0, V) is dropped.
 //
 // What bounds them on this card. Neither does arithmetic worth counting
 // (the scatter adds 3 B Q floats). Counting each input read once and each
 // output written once, they move 4 B (3 V + Q + 3 Q) bytes (gather) and
 // 4 B (3 Q + Q + 3 V) bytes (scatter), and are bound by those bytes: 12.3
 // MB, 0.0037 ms at B = 64, V = Q = 6890. At that size everything fits in
-// the 50 MB L2, so what shows is a second pass over the output (a memset)
-// and the rate at which L2 takes requests to scattered rows.
+// the 50 MB L2.
 //
 // What the design does about it. The TPU kernels build (TM, TQ) one-hot
 // tiles and select rows on the MXU in three exact bf16 planes, because XLA
@@ -27,28 +26,27 @@
 //   consecutive threads on consecutive addresses of idx, values and out. A
 //   copy: bitwise equal to torch.gather. Timed by device time it reaches
 //   two thirds of its bound and is faster than both library calls
-//   (PERF.md), so it was left as it is when the scatter was redesigned.
-// - Scatter: one launch, no memset. The C blocks of a thread-block cluster
-//   share batch item b (grid (C, B), cluster (C, 1, 1), ops/gather.py
-//   scatter_plan). Block c zeroes rows [c S, c S + S) of item b with 16-byte
-//   stores, arrives at the cluster barrier (release), loads its floats of
-//   contributions [c P, c P + P) and their indices meanwhile, waits at the
-//   barrier (acquire: every row of item b is zero now), and adds each float
-//   into its row in L2 with a reduction (atomicAdd, result unused: RED).
-//   Lanes take consecutive floats, as the loads are coalesced, and a row's
-//   three reductions leave the SM as one request. Every contribution is
-//   read by one block only; every output row is zeroed by one block before
-//   any addition to it. Measured on the card (tools/slice_variants.py), the
-//   additions into scattered rows take most of the time, and plain stores
-//   in their place take as long: the limit is L2's rate for scattered
-//   requests, not the atomics. Two alternatives lost: a thread per row with
-//   Hopper's float4 reductions (fewer, wider requests, but strided loads
-//   and a third of the threads), and rows held in shared memory (on sm_90 a
-//   float atomicAdd there is a compare-and-swap loop, ATOMS.CAST.SPIN; both
-//   in tools/scatter_trials.cu). Index arithmetic is 32-bit (the wrapper
-//   refuses 3 B Q or 3 B V >= 2^31). The order of the additions into one
-//   row varies from run to run, so the scatter is not bitwise deterministic
-//   (it equals index_add_ to fp32 rounding of the summation order).
+//   (PERF.md), so it was left as it is.
+// - Scatter, in a fixed order: every output row is the sum of its
+//   contributions in ascending q, added one after another from +0 (the
+//   order of the plain version's index_add_ on the CPU, so the two agree
+//   bit for bit), with no float atomics. The atomic form it replaces (now
+//   kept in tools/scatter_atomic.cu) added in an order that changed from
+//   run to run, and the card's training runs drifted apart with it
+//   (ROADMAP fault 4). One block of 1024 threads per batch item b (grid
+//   (1, B)) sorts item b's contributions by row in shared memory, a
+//   counting sort: (1) it counts the contributions of each row with
+//   integer atomics (the counts, unlike float sums, do not depend on the
+//   order); (2) an exclusive scan of the counts gives each row its first
+//   slot; (3) each valid q takes a slot of its row by an integer atomic
+//   (in any order); (4) a thread per row sorts its row's slots by q
+//   (insertion sort: rows are short, and the atomics hand out slots nearly
+//   in q order, so there is little to move); (5) the same thread sums the
+//   row's contributions in that order and writes the row, so every row of
+//   out is written once and nothing needs a memset. Shared memory holds
+//   V + Q + 32 ints (55,248 bytes at the body's V = Q = 6890); the wrapper
+//   refuses what does not fit in a block's 227 KB. Index arithmetic is
+//   64-bit per item base, 32-bit inside an item.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,9 +55,11 @@ namespace {
 
 constexpr int GATHER_THREADS = 256;
 constexpr int SCATTER_THREADS = 1024;
-constexpr int SCATTER_UNROLL = 4;  // floats per thread and pass
-constexpr int MAX_CLUSTER = 8;     // the portable limit; ops/gather.py
+constexpr int SCATTER_WARPS = SCATTER_THREADS / 32;
+constexpr int MAX_SHARED = 232448;  // bytes a block may use (227 KB)
+constexpr int DEFAULT_SHARED = 48 * 1024;  // without the opt-in attribute
 constexpr int MAX_GRID_Y = 65535;  // the batch axis
+constexpr int MAX_DEVICES = 64;
 
 __global__ void __launch_bounds__(GATHER_THREADS)
     gather_rows_kernel(const float* __restrict__ values,
@@ -74,79 +74,90 @@ __global__ void __launch_bounds__(GATHER_THREADS)
   out[t] = (i >= 0 && i < V) ? values[(b * V + i) * 3 + c] : 0.f;
 }
 
-// dst[0, n) = 0 by the whole block: scalar stores up to the first 16-byte
-// boundary of dst, float4 stores, then a scalar tail of at most 3.
-__device__ __forceinline__ void zero_span(float* __restrict__ dst, int n) {
-  const int t = threadIdx.x;
-  const int head =
-      min(n, (int)((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
-  const int body = (n - head) >> 2;
-  if (t < head) dst[t] = 0.f;
-  float4* dst4 = reinterpret_cast<float4*>(dst + head);
-  for (int k = t; k < body; k += SCATTER_THREADS)
-    dst4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (head + 4 * body + t < n) dst[head + 4 * body + t] = 0.f;
+// a[0, n) <- its exclusive prefix sums, by the whole block; sums[0, 32) is
+// scratch. Thread t scans a run of ceil(n / THREADS) consecutive entries
+// (a stride coprime with the 32 banks at the body's n), the runs' totals
+// are scanned by shuffles within each warp and across the warps' totals.
+__device__ __forceinline__ void exclusive_scan(int* a, int n, int* sums) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (n + SCATTER_THREADS - 1) / SCATTER_THREADS;
+  const int lo = min(n, t * per), hi = min(n, lo + per);
+  int own = 0;
+  for (int k = lo; k < hi; ++k) own += a[k];
+  int x = own;  // inclusive scan of the runs' totals within the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < SCATTER_WARPS ? sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    sums[lane] = w;  // inclusive over the warps
+  }
+  __syncthreads();
+  int run = x - own + (warp ? sums[warp - 1] : 0);
+  for (int k = lo; k < hi; ++k) {
+    const int c = a[k];
+    a[k] = run;
+    run += c;
+  }
 }
 
-// One pass of a block over floats [p0, p0 + UNROLL * THREADS) of its run
-// (up to e_hi): thread t takes float e = p0 + u THREADS + t, its index and
-// the offset of its row's float in out (-1: nothing to add).
-struct Pass {
-  int at[SCATTER_UNROLL];
-  float v[SCATTER_UNROLL];
-
-  __device__ __forceinline__ void load(const int* __restrict__ ib,
-                                       const float* __restrict__ cb, int p0,
-                                       int e_hi, int V) {
-#pragma unroll
-    for (int u = 0; u < SCATTER_UNROLL; ++u) {
-      const int e = p0 + u * SCATTER_THREADS + threadIdx.x;
-      at[u] = -1;
-      v[u] = 0.f;
-      if (e < e_hi) {
-        const int q = e / 3;
-        const int i = __ldg(ib + q);
-        v[u] = __ldg(cb + e);
-        if ((unsigned)i < (unsigned)V) at[u] = 3 * i + (e - 3 * q);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void add(float* __restrict__ out) const {
-#pragma unroll
-    for (int u = 0; u < SCATTER_UNROLL; ++u)
-      if (at[u] >= 0) atomicAdd(out + at[u], v[u]);
-  }
-};
-
-// Grid (C, B), cluster (C, 1, 1): block c of item b zeroes rows
-// [c S, min(V, c S + S)) and adds contributions [c P, min(Q, c P + P)).
+// Grid (1, B): block b sums item b's contributions per row in ascending q
+// (see the header). Dynamic shared memory: 32 + V + Q ints.
 __global__ void __launch_bounds__(SCATTER_THREADS)
     scatter_add_rows_kernel(const float* __restrict__ contrib,
                             const int* __restrict__ idx,
-                            float* __restrict__ out, int V, int Q, int S,
-                            int P) {
-  const int b = blockIdx.y;
-  const int c = blockIdx.x;
+                            float* __restrict__ out, int V, int Q) {
+  extern __shared__ int smem[];
+  int* sums = smem;          // the scan's scratch
+  int* pos = smem + 32;      // per row: count, first slot, then end slot
+  int* slot = pos + V;       // the valid q, grouped by row
+  const int t = threadIdx.x;
+  const int64_t b = blockIdx.y;
   const int* ib = idx + b * Q;
-  const float* cb = contrib + 3 * b * Q;
-  float* ob = out + 3 * b * V;
-  const int e_lo = 3 * c * P;
-  const int e_hi = 3 * min(Q, c * P + P);
-  const int r_lo = c * S;
-  if (r_lo < V) zero_span(ob + 3 * r_lo, 3 * min(S, V - r_lo));
-  // release: the zeros are visible to the cluster before it passes the
-  // barrier (a MEMBAR.GPU); the first pass's loads are issued after it
-  // (issued before, the MEMBAR waited for them too: slower on the card)
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  Pass pass;
-  pass.load(ib, cb, e_lo, e_hi, V);
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-  for (int p0 = e_lo;;) {
-    pass.add(ob);
-    p0 += SCATTER_UNROLL * SCATTER_THREADS;
-    if (p0 >= e_hi) break;
-    pass.load(ib, cb, p0, e_hi, V);
+  const float* cb = contrib + b * 3 * Q;
+  float* ob = out + b * 3 * V;
+  for (int r = t; r < V; r += SCATTER_THREADS) pos[r] = 0;
+  __syncthreads();
+  for (int q = t; q < Q; q += SCATTER_THREADS) {          // (1) count
+    const int i = __ldg(ib + q);
+    if ((unsigned)i < (unsigned)V) atomicAdd(pos + i, 1);
+  }
+  __syncthreads();
+  exclusive_scan(pos, V, sums);                           // (2) first slots
+  __syncthreads();
+  for (int q = t; q < Q; q += SCATTER_THREADS) {          // (3) fill
+    const int i = __ldg(ib + q);
+    if ((unsigned)i < (unsigned)V) slot[atomicAdd(pos + i, 1)] = q;
+  }
+  __syncthreads();
+  // pos[r] is now the end of row r's slots and pos[r - 1] their start
+  for (int r = t; r < V; r += SCATTER_THREADS) {
+    const int lo = r ? pos[r - 1] : 0, hi = pos[r];
+    for (int k = lo + 1; k < hi; ++k) {                   // (4) sort by q
+      const int s = slot[k];
+      int j = k;
+      for (; j > lo && slot[j - 1] > s; --j) slot[j] = slot[j - 1];
+      slot[j] = s;
+    }
+    float x = 0.f, y = 0.f, z = 0.f;                      // (5) sum
+    for (int k = lo; k < hi; ++k) {
+      const float* c = cb + 3 * slot[k];
+      x = __fadd_rn(x, __ldg(c));
+      y = __fadd_rn(y, __ldg(c + 1));
+      z = __fadd_rn(z, __ldg(c + 2));
+    }
+    ob[3 * r] = x;
+    ob[3 * r + 1] = y;
+    ob[3 * r + 2] = z;
   }
 }
 
@@ -168,30 +179,30 @@ extern "C" int tuch_gather_rows(const void* values, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// Clusters of C blocks, S rows and P contributions per block: C S >= V and
-// C P >= Q, so every row of out (B, V, 3) is written.
+// One block per batch item; 4 (32 + V + Q) bytes of shared memory, at most
+// MAX_SHARED (ops/gather.py scatter_shared_bytes).
 extern "C" int tuch_scatter_add_rows(const void* contrib, const void* idx,
-                                     void* out, int B, int V, int Q, int C,
-                                     int S, int P, void* stream) {
-  if (B <= 0 || V <= 0 || Q <= 0 || B > MAX_GRID_Y || C < 1 ||
-      C > MAX_CLUSTER || S <= 0 || P <= 0 || (int64_t)C * S < V ||
-      (int64_t)C * P < Q)
+                                     void* out, int B, int V, int Q,
+                                     void* stream) {
+  const int64_t shared = 4 * ((int64_t)32 + V + Q);
+  if (B <= 0 || V <= 0 || Q <= 0 || B > MAX_GRID_Y || shared > MAX_SHARED)
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, B);
-  cfg.blockDim = dim3(SCATTER_THREADS);
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = C;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, scatter_add_rows_kernel, static_cast<const float*>(contrib),
-      static_cast<const int*>(idx), static_cast<float*>(out), V, Q, S, P);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  if (shared > DEFAULT_SHARED) {  // the opt-in, once per device
+    static bool opted[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && (dev >= MAX_DEVICES || !opted[dev]))
+      err = cudaFuncSetAttribute(scatter_add_rows_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 MAX_SHARED);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) opted[dev] = true;
+  }
+  scatter_add_rows_kernel<<<dim3(1, B), SCATTER_THREADS, (size_t)shared,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(contrib), static_cast<const int*>(idx),
+      static_cast<float*>(out), V, Q);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* tuch_cuda_error_string(int err) {

@@ -140,6 +140,28 @@ def normalize_image(img01: np.ndarray) -> np.ndarray:
     return ((img01 - mean) / std).astype(np.float32)
 
 
+def uncrop_image(img: np.ndarray, center, scale,
+                 orig_shape: Tuple[int, int], rot: float = 0.0
+                 ) -> np.ndarray:
+    """Inverse of crop_image: paste the crop back into original coords,
+    nearest pixel (tuch_tpu/data/transforms.py uncrop_image; the
+    reference's imutils.py uncrop, used for mask and part evaluation)."""
+    res = img.shape[:2]
+    t = get_transform(center, scale, res, rot)
+    ys, xs = np.meshgrid(np.arange(orig_shape[0]), np.arange(orig_shape[1]),
+                         indexing='ij')
+    dst = np.stack([xs.ravel() + 0.5, ys.ravel() + 0.5], axis=1)
+    src = transform_points(dst, t) - 0.5
+    sx = np.round(src[:, 0]).astype(np.int64)
+    sy = np.round(src[:, 1]).astype(np.int64)
+    inside = (sy >= 0) & (sy < res[0]) & (sx >= 0) & (sx < res[1])
+    out = np.zeros(orig_shape + img.shape[2:], dtype=img.dtype)
+    flat_idx = np.where(inside)[0]
+    out.reshape(-1, *img.shape[2:])[flat_idx] = \
+        img[np.clip(sy, 0, res[0] - 1), np.clip(sx, 0, res[1] - 1)][inside]
+    return out
+
+
 def flip_img(img: np.ndarray) -> np.ndarray:
     """Horizontal flip, channels-last."""
     return np.ascontiguousarray(img[:, ::-1])

@@ -10,6 +10,12 @@ column order is kept, so the attention layout is unchanged.
 ``{'model': state_dict}`` wrapper) or the JAX package's flat ``.npz`` pytree
 (keys 'params/backbone/...'), the latter with numpy only.
 
+Weights out: ``convert_to_torch_state_dict`` and ``save_torch_checkpoint``
+write this package's HMR state dict as a reference-loadable checkpoint
+(``{'model': state_dict}`` with the init_pose/init_shape/init_cam buffers
+and the reference's bookkeeping keys), as the JAX package's do from its
+Flax tree; cli/export_torch drives them.
+
 ``params_from_jax`` and ``batch_stats_from_jax`` carry the training state
 across by name: a parameter-shaped tree (parameters, gradients, Adam
 moments) and the BatchNorm statistics. The fits store's (N, 82) rows have
@@ -86,6 +92,39 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
                            'HMR tree')
         sd['.'.join(mod + [name])] = torch.tensor(np.ascontiguousarray(v))
     return sd
+
+
+def convert_to_torch_state_dict(state_dict, mean_params=None
+                                ) -> Dict[str, torch.Tensor]:
+    """This package's HMR state dict -> the reference's (CPU tensors).
+
+    The ResNet-50 HMR's keys already are the reference's (tuch/models/
+    hmr.py), so the weights and BatchNorm statistics keep their names;
+    every BatchNorm gets num_batches_tracked 0 (int64), as the JAX
+    package's export writes it. mean_params: optional (pose6d (144,),
+    shape (10,), cam (3,)) for the init_pose/init_shape/init_cam buffers
+    the reference HMR registers, as (1, n) float32.
+    """
+    sd = {k: torch.as_tensor(v).detach().cpu().contiguous()
+          for k, v in state_dict.items()
+          if not k.endswith('num_batches_tracked')}
+    for k in [k for k in sd if k.endswith('.running_mean')]:
+        sd[k[:-len('running_mean')] + 'num_batches_tracked'] = \
+            torch.tensor(0, dtype=torch.int64)
+    if mean_params is not None:
+        for name, v in zip(('init_pose', 'init_shape', 'init_cam'),
+                           mean_params):
+            sd[name] = torch.as_tensor(
+                np.asarray(v, np.float32).reshape(1, -1))
+    return sd
+
+
+def save_torch_checkpoint(state_dict, path, mean_params=None, **extra):
+    """Write a reference-loadable .pt checkpoint: the {'model': sd} wrapper
+    (convert_to_torch_state_dict) and any extra entries, as the reference's
+    saver writes them."""
+    torch.save(dict(extra, model=convert_to_torch_state_dict(
+        state_dict, mean_params)), path)
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:

@@ -7,12 +7,12 @@ the gather and its backward the scatter-add, so the gradient of a
 re-gathered nearest vertex reaches both contact endpoints.
 
 Indices are int32, as in the JAX kernels: an index outside [0, V) gathers
-a zero row and scatters nothing. The scatter kernel adds with atomic
-reductions, so on the card its result is not bitwise deterministic (the
-order of the additions into one row varies); it equals index_add_ to fp32
-rounding. The wrappers are on the fit's host path once per body iteration
-each: they resolve their C entry once (_build.entry) and enter a device
-guard only for a tensor off the current device.
+a zero row and scatters nothing. The scatter kernel sums each row's
+contributions in ascending q with no float atomics, so on the card its
+result is the same from run to run and equals the plain version's on the
+CPU bit for bit. The wrappers are on the fit's host path once per body
+iteration each: they resolve their C entry once (_build.entry) and enter a
+device guard only for a tensor off the current device.
 """
 
 import ctypes
@@ -22,12 +22,11 @@ import torch
 from tuch_tpu_torch.ops import _build
 
 _GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
     + [ctypes.c_void_p]
 INDEX_LIMIT = 2 ** 31        # the scatter kernel indexes in 32 bits
 MAX_BATCH = 65535            # its batch is blockIdx.y
-MAX_CLUSTER = 8              # csrc/gather.cu MAX_CLUSTER (portable size)
-SCATTER_BLOCKS = 132         # blocks of 1024 threads: one per SM (H100 SXM)
+MAX_SHARED = 232448          # csrc/gather.cu MAX_SHARED: a block's 227 KB
 
 
 def _flat_rows(idx: torch.Tensor, num_rows: int):
@@ -52,7 +51,9 @@ def gather_rows_ref(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def scatter_add_rows_ref(contrib: torch.Tensor, idx: torch.Tensor,
                          num_rows: int) -> torch.Tensor:
     """Plain version: contrib (B, Q, 3), idx (B, Q) -> (B, num_rows, 3)
-    with index_add_; out-of-range indices are dropped."""
+    with index_add_ (on the CPU it adds in ascending q, as kernel 6 does);
+    out-of-range indices are dropped (they add +0 to a clamped row, which
+    changes no sum)."""
     B, Q, C = contrib.shape
     valid, flat = _flat_rows(idx, num_rows)
     src = torch.where(valid[..., None], contrib, torch.zeros_like(contrib))
@@ -84,15 +85,19 @@ def check_sizes(B: int, Q: int, V: int, what: str):
                          f'3 B Q and 3 B V < 2^31, B <= {MAX_BATCH})')
 
 
-def scatter_plan(B: int, V: int, Q: int):
-    """(C, S, P): kernel 6's C blocks per batch item (one thread-block
-    cluster), the S rows each block zeroes and the P contributions each
-    adds; C S >= V and C P >= Q. As many blocks as fill the SMs once, at
-    most MAX_CLUSTER per item (below B = 17 that caps them: at the body's
-    Q = 6890, C = 8 blocks of 1024 threads give every contribution its own
-    thread already)."""
-    C = max(1, min(MAX_CLUSTER, SCATTER_BLOCKS // B, V))
-    return C, -(-V // C), -(-Q // C)
+def scatter_shared_bytes(V: int, Q: int) -> int:
+    """Kernel 6's shared memory per block (one batch item): the scan's 32
+    ints, a count and then a slot boundary per row, a slot per
+    contribution."""
+    return 4 * (32 + V + Q)
+
+
+def check_shared(V: int, Q: int, what: str):
+    """Refuse what kernel 6's one block per batch item cannot hold."""
+    if scatter_shared_bytes(V, Q) > MAX_SHARED:
+        raise ValueError(f'{what}: V={V}, Q={Q} needs '
+                         f'{scatter_shared_bytes(V, Q)} bytes of shared '
+                         f'memory per block, more than {MAX_SHARED}')
 
 
 def _launch(fn, device: torch.device, *args) -> int:
@@ -132,12 +137,12 @@ def scatter_add_rows_cuda(contrib: torch.Tensor, idx: torch.Tensor,
     if B * Q == 0 or num_rows == 0:
         return contrib.new_zeros((B, num_rows, 3))
     check_sizes(B, Q, num_rows, 'scatter_add_rows_cuda')
+    check_shared(num_rows, Q, 'scatter_add_rows_cuda')
     out = torch.empty((B, num_rows, 3), dtype=contrib.dtype,
                       device=contrib.device)   # the kernel writes every row
     lib, fn = _build.entry('gather', 'tuch_scatter_add_rows', _SCATTER_ARGS)
     err = _launch(fn, contrib.device, contrib.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), B, num_rows, Q,
-                  *scatter_plan(B, num_rows, Q))
+                  out.data_ptr(), B, num_rows, Q)
     if err:
         _build.check(lib, err, 'scatter kernel launch')
     scatter_add_rows_cuda.launches += 1

@@ -56,6 +56,27 @@ class Runtime(NamedTuple):
     hd: Optional[HDAssets] = None      # with HD only
 
 
+def deterministic(device) -> None:
+    """Make the training entry points' card runs repeat bit for bit, as the
+    JAX package's runs on a TPU do: cuDNN picks deterministic algorithms and
+    does not benchmark, and torch's CUDA ops take their deterministic forms
+    (cuBLAS with the fixed workspace that this asks for, set here unless the
+    caller set one). Kernel 6 (ops/gather) sums in a fixed order itself.
+    Memory from torch.empty is not filled first (deterministic mode's
+    default, a debugging aid): every kernel of the port writes all of its
+    output. Process-wide; does nothing for the CPU, whose ops repeat
+    already. Call it before the first CUDA work: cuBLAS reads its workspace
+    setting once.
+    """
+    if torch.device(device).type != 'cuda':
+        return
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
 def load_hmr_weights(hmr: hmr_mod.HMR, state_dict) -> None:
     """Load a state dict into HMR; BatchNorm running statistics missing
     from it keep their current values, anything else missing raises."""
