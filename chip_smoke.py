@@ -146,13 +146,46 @@ and the offline tools and the real-format path:
              and 6 launched as phase 12 counts) and cli/eval on its 3DPW
              test database, each card against CPU.
 
+and the device mesh (parallel/), its ranks processes that share the
+card over gloo (NCCL refuses two ranks on one card), each started as
+`chip_smoke.py --rank_job` with torchrun's environment after the build:
+
+ 19. cp      kernel 4's range entry against its plain version on the posed
+             B=64 body over the cuts of cp 2 and 4 (the MIN of the ranges
+             equal to the whole-axis kernel bit for bit) and its time; then
+             on meshes dp x cp = 1x2, 2x2, 1x4, contact_neighbors exact and
+             with candidate_k against one process (in/out flips only in
+             the winding band, argmins but at ties, each rank's launches
+             of kernel 2 and the range entry), SMPLify-DC with
+             SMPLifyConfig(mesh) at B=64 against one process (vertices at
+             VERTEX_TOL) and the ms of a body iteration at cp 1, 2, 4;
+             NCCL at world size 1, and what NCCL does with 2 ranks on the
+             card.
+ 20. train   cli/train --run_smplify (ResNet-50, B=64, 2 steps) with
+             --mesh_cp 2 on 2 ranks against one process, and with
+             --mesh_dp 2 against one process on the mesh's BatchNorm (a
+             group of 1) (MESH_GAP, the losses at TRAIN_LOSS_RTOL, the cp
+             ranks bit for bit equal, the cp route taken), and ViT-S/16
+             with --mesh_dp 2 (kernel 1 launched; element by element).
+             The ResNet-50 dp 2 ranks then run the BatchNorm control
+             (bn_control): the backbone at B=64 in float64, dp against one
+             process at the CPU test's element bars, which dp without the
+             statistics sync must fail; in float32, dp and one process on
+             its batch in reverse order, each against one process.
+ 21. eval    cli/eval --mesh_dp 2 on 72 samples (a ragged last batch)
+             against one process, per image at rtol 1e-4; cli/fit_eft
+             --auto_shard on 1, 2 and 4 processes, merged, against one
+             process fitting the same shards (bit for bit), and images a
+             second for each process count.
+
 `python3 chip_smoke.py --trainer` runs phases 1, 6b, 12 (ResNet-50 times),
-13 and 14 alone (~2.5 minutes, against the whole smoke's ~12) and
-`--offline` runs phases 1, 7, 17 and 18 alone (~2.5 minutes); both print
-no result lines. Weights and bodies are random from fixed seeds. The last
-two lines of standard output are the kernel summary and {"ok": true, "device": {...}} as
-JSON; the line before them is the card's name and power limit from
-nvidia-smi.
+13 and 14 alone (~2.5 minutes, against the whole smoke's ~15),
+`--offline` runs phases 1, 7, 17 and 18 alone (~2.5 minutes) and
+`--parallel` runs phases 1 and 19-21 alone (~5 minutes); they print no
+result lines. Weights and bodies are random from fixed seeds. The last
+two lines of standard output are the kernel summary and {"ok": true,
+"device": {...}} as JSON; the line before them is the card's name and
+power limit from nvidia-smi.
 """
 
 import argparse
@@ -289,6 +322,61 @@ REAL_B, REAL_ITERS, REAL_HD_POINTS = 2, 2, 1024
 # stands
 LAUNCH_CALLS = ('cudaLaunch', 'cuLaunch')
 CAPTURE_TRIES = 10
+# the device mesh (phases 19-21): ranks are processes sharing the card
+PAR_DIR = os.path.join('build', 'chip_smoke_parallel')
+PAR_TIMEOUT = 300                # s, a group of ranks
+CP_MESHES = ((1, 2), (2, 2), (1, 4))
+CP_K = 984                       # candidate_k, as --fast_profile sets it
+CP_FIT_ITERS = 10                # SMPLify-DC iterations of each stage
+CP_TIMED = 3                     # timed body iterations
+MESH_TRAIN_STEPS = 2
+MESH_REF = os.path.join(PAR_DIR, 'one_process_state.pt')
+# ResNet-50's dp 2 run is held against one process whose BatchNorm is the
+# mesh's (models/hmr._SyncBatchNorm over a group of 1): one process's own
+# kernel (F.batch_norm) rounds otherwise, and ResNet-50's float32 step
+# amplifies that (MESH_GAP); bn_control holds the two BatchNorms equal in
+# float64
+MESH_REF_SYNC = os.path.join(PAR_DIR, 'one_process_sync_state.pt')
+# a mesh run's state against the one-process run's, relative L2 by part.
+# ResNet-50's float32 step amplifies rounding: one process on its B=64
+# batch in reverse row order moves the backbone's gradient 38.5% and
+# Adam's first update 61.1% in L2 (bn_control, float32; H100 80GB HBM3,
+# 700 W), as far as dp 2 does, and against one process on its own
+# BatchNorm kernel dp 2's update lies 47% off. Against one process on the
+# mesh's BatchNorm (MESH_REF_SYNC) it lies 14.9% off, Adam's first moment
+# 2.4%, the fits' change 1.7%, the statistics' change 3.6e-4. The bars:
+# Adam's first moment 0.1 and the parameter update 0.4, the CPU test's
+# (tests/_torch_train_parity.JAX_GAP); the fits' change 0.1 and the
+# BatchNorm statistics' change 4e-3, 5-10x those readings and below what
+# the statistics move without their sync (9.0e-3 in one step,
+# bn_control). That the sync is exact is held in float64 by bn_control;
+# element by element only where no BatchNorm amplifies (ViT-S/16) or the
+# ranks repeat one process bit for bit (cp).
+MESH_GAP = {'mu': 0.1, 'params': 0.4, 'fits': 0.1, 'buffers': 4e-3}
+# ViT-S/16 (no BatchNorm) element by element at the CPU test's bars:
+# Adam's first moment at the gradient bar rtol 1e-3 + atol 1e-5 of each
+# tensor's largest; a parameter within S lr min(2, 3 bar / |m|), what m
+# known to its bar moves Adam's step (tests/_torch_train_parity.py)
+MESH_GRAD_RTOL, MESH_GRAD_ATOL = 1e-3, 1e-5
+# phase 20's control of ResNet-50's BatchNorm over dp (bn_control): dp 2
+# against one process in float64, element by element at the bars of
+# tests/test_torch_port_parallel_train.py (BN64_*: rtol, and atol of each
+# tensor's largest); in float32, dp's gradient and first update no further
+# from one process than BN32_FACTOR times a reversed batch order's (the
+# CPU test's 'no noisier than twice') plus the gradient bar's rtol
+BN64_RTOL, BN64_ATOL = 1e-9, 1e-12
+BN32_FACTOR = 2.0
+MESH_EVAL_N = 72                 # a batch of 64 and a ragged one of 8
+MESH_EFT_STEPS = 10               # a fit's steps (phase 15 runs 50)
+
+
+T0 = time.perf_counter()
+
+
+def clock(phase):
+    """The script's wall time as a phase starts (where the 1200 s go)."""
+    print(f'[clock] phase {phase} starts at {time.perf_counter() - T0:.0f} s',
+          flush=True)
 
 
 def check(ok, msg):
@@ -1320,16 +1408,18 @@ def phase_fit_parity(runtime):
     check(verr.item() <= 1e-3, f'parity vertices {verr.item()}')
 
 
-def body_stepper(assets, ins, init_scale=1.0, neighbors=None):
+def body_stepper(assets, ins, init_scale=1.0, neighbors=None, mesh=None):
     """One body iteration of the fit at the reference's refresh every step:
     the neighbour refresh (or the given neighbours), the stage-2 loss's
-    value and gradient, one Adam step. assets: (smpl, prior, contact).
-    Each call returns (loss, gradients on the CPU)."""
+    value and gradient, one Adam step. assets: (smpl, prior, contact);
+    mesh: the contact's cp split (phase 19). Each call returns (loss,
+    gradients on the CPU)."""
     from tuch_tpu_torch.fitting import smplify_dc as PF
     init_pose, betas, cam_t, cc, kp, gt, ign, hdc, _ = ins
     stage = PF.contact_stage(*assets, betas, cam_t, cc, kp[..., :2],
                              kp[..., 2], gt, ign, hdc, PF.SMPLifyConfig(
-                                 euclthres=0.02, contact_loss_weight=2000.0))
+                                 euclthres=0.02, contact_loss_weight=2000.0,
+                                 mesh=mesh))
     pose = init_pose * init_scale
     state = {'body_pose': pose[:, 3:], 'global_orient': pose[:, :3]}
     opt = PF.Adam(state, 1e-2)
@@ -1967,6 +2057,8 @@ def instrument(tr, counters, stop_after=None):
     def timed_save(*args):
         t0 = time.perf_counter()
         save(*args)
+        if not tr.is_main:         # a mesh's rank 0 alone writes
+            return
         ms = 1e3 * (time.perf_counter() - t0)
         path = tr.ckpt.latest()
         nbytes = os.path.getsize(path) + sum(
@@ -2975,6 +3067,872 @@ def phase_real_format(card):
         shutil.rmtree(REAL_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# The device mesh (phases 19-21): ranks as processes that share the card
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(job, world, args, timeout=PAR_TIMEOUT, expect_fail=False):
+    """Run `job` on `world` ranks, each `python3 chip_smoke.py --rank_job`
+    with torchrun's environment (a rank a process, all on this card), and
+    return their results in rank order. A rank that fails or a group that
+    outlives `timeout` fails the run (every rank is killed first); with
+    expect_fail, (returncodes, logs) instead."""
+    d = os.path.abspath(os.path.join(PAR_DIR,
+                                     f'{job}_{world}_{time.time_ns()}'))
+    os.makedirs(d)
+    torch.save(args, os.path.join(d, 'args.pt'))
+    port = free_port()
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world))
+        logs.append(os.path.join(d, f'rank{r}.log'))
+        with open(logs[-1], 'w') as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--rank_job',
+                 job, '--job_dir', d], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.returncode not in (None, 0)]
+            if bad and not expect_fail:
+                failed = f'rank {bad[0]} exited {procs[bad[0]].returncode}'
+                break
+            if time.monotonic() > deadline:
+                failed = f'no end within {timeout} s'
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    if expect_fail:
+        found = [os.path.join(d, f'rank{r}.pt') for r in range(world)]
+        return ([p.returncode for p in procs], failed,
+                [torch.load(f, weights_only=False) if os.path.exists(f)
+                 else None for f in found], texts)
+    if failed is None and any(p.returncode for p in procs):
+        failed = 'ranks exited ' + str([p.returncode for p in procs])
+    if failed:
+        for r, t in enumerate(texts):
+            print(f'[{job} rank {r}] ...{t[-3000:]}', flush=True)
+        raise RuntimeError(f'check failed: {job} on {world} ranks: {failed}')
+    for line in texts[0].splitlines():
+        if line.startswith('['):
+            print(line, flush=True)
+    return [torch.load(os.path.join(d, f'rank{r}.pt'), weights_only=False)
+            for r in range(world)]
+
+
+def rank_job(job, job_dir):
+    """One rank of run_ranks: start the process group from torchrun's
+    environment (but for nccl2, which starts its own), run the job, save
+    its result."""
+    import torch.distributed as dist
+    from tuch_tpu_torch.parallel import multihost
+    args = torch.load(os.path.join(job_dir, 'args.pt'), weights_only=False)
+    if job != 'nccl2':
+        multihost.maybe_initialize_distributed(DEV)
+    out = RANK_JOBS[job](args)
+    rank = int(os.environ['RANK'])
+    path = os.path.join(job_dir, f'rank{rank}.pt')
+    torch.save(out, path + '.tmp')
+    os.replace(path + '.tmp', path)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+    return 0
+
+
+def cp_counters():
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    return dict(slice_counters(), masked_min_range=CK.masked_min_keys_cuda)
+
+
+def _cp_fit_config(mesh):
+    from tuch_tpu_torch.fitting import smplify_dc as PF
+    return PF.SMPLifyConfig(num_iters=CP_FIT_ITERS, euclthres=0.02,
+                            contact_loss_weight=2000.0, mesh=mesh)
+
+
+def _cp_fit_inputs(P, mesh=None):
+    from tuch_tpu_torch.parallel.mesh import shard_rows
+    ins = fit_inputs(TRAIN_B, P, 31, DEV)
+    ins[0] = ins[0] * 2.5            # fold the body: interior vertices
+    return [shard_rows(t, mesh).contiguous() for t in ins]
+
+
+def job_contact(args):
+    """Phase 19 on one rank of a (dp, cp) mesh: contact_neighbors exact
+    and with candidate_k on this rank's rows of the posed B=64 body, one
+    launch count each; CP_FIT_ITERS SMPLify-DC iterations with
+    SMPLifyConfig(mesh); the ms of a body iteration."""
+    import torch.distributed as dist
+    from tuch_tpu_torch import runtime as rt
+    from tuch_tpu_torch.fitting import smplify_dc as PF
+    from tuch_tpu_torch.losses import smplify as PL
+    from tuch_tpu_torch.parallel import contact_parallel as CPAR
+    from tuch_tpu_torch.parallel import mesh as PM
+    runtime = rt.build_runtime(device=DEV, synthetic=True,
+                               with_contact=True)
+    mesh = PM.make_mesh(dp=args['dp'], cp=args['cp'], device=DEV)
+    contact = runtime.contact
+    verts = PM.shard_rows(posed_verts(runtime.smpl, TRAIN_B, 0.3, 99),
+                          mesh).contiguous()
+    counters = cp_counters()
+    out = dict(dp_rank=mesh.dp_rank, cp_rank=mesh.cp_rank, launches={})
+    for route, k in (('exact', 0), ('candidate', CP_K)):
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        n0 = dict(CPAR.CP_CALLS)
+        ext, arg = PL.contact_neighbors(verts, contact, candidate_k=k,
+                                        mesh=mesh)
+        torch.cuda.synchronize()
+        out['launches'][route] = {n: c.launches for n, c in counters.items()}
+        out['launches'][route]['cp_calls'] = sum(
+            CPAR.CP_CALLS[n] - n0[n] for n in n0)
+        out[route] = (ext.cpu(), arg.cpu())
+    # the fit, on the main path's counts
+    P = contact.region_idx_a.shape[0]
+    ins = _cp_fit_inputs(P, mesh)
+    for c in counters.values():
+        c.launches = 0
+    res = PF.smplify_dc(runtime.smpl, runtime.prior, contact, *ins,
+                        config=_cp_fit_config(mesh))
+    torch.cuda.synchronize()
+    out['fit_launches'] = {n: c.launches for n, c in counters.items()}
+    out['fit_vertices'] = res.vertices.cpu()
+    # ms per body iteration, the ranks started together
+    step = body_stepper((runtime.smpl, runtime.prior, contact),
+                        fit_inputs(TRAIN_B // mesh.dp, P, 21, DEV),
+                        mesh=mesh)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(CP_TIMED):
+        step()
+    torch.cuda.synchronize()
+    out['iter_ms'] = 1e3 * (time.perf_counter() - t0) / CP_TIMED
+    return out
+
+
+def job_nccl1(args):
+    """NCCL at world size 1: the backend maybe_initialize_distributed
+    chose, and one all_reduce."""
+    import torch.distributed as dist
+    t = torch.ones(4, device=DEV)
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return dict(backend=dist.get_backend(), value=t.cpu())
+
+
+def job_nccl2(args):
+    """NCCL asked for by hand on ranks that share the card: the error."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group('nccl', timeout=datetime.timedelta(
+            seconds=60))
+        t = torch.ones(4, device=DEV)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        return dict(ok=True, error='')
+    except Exception as e:   # the finding is the error itself
+        return dict(ok=False, error=f'{type(e).__name__}: {e}'[:600])
+
+
+def mesh_train_run(name, backbone, flags, ref_path=None, ref_file=MESH_REF,
+                   sync_world=False, also=None):
+    """One cli/train run on this process's place in the mesh (or alone):
+    build as a user's command does (phase 13's flags, B=64), 2 steps, then
+    the time-budget exit; returns the record, the launches of the run, the
+    state and the losses (rank 0). ref_path 'save' saves the state to
+    ref_file, 'compare' measures the state's distances to ref_file's (and
+    to also's, where given); sync_world runs BatchNorm's statistics over
+    the world's process group (a group of 1: the mesh's BatchNorm in one
+    process)."""
+    from tuch_tpu_torch import config as cfgmod
+    from tuch_tpu_torch.cli import train as train_cli
+    from tuch_tpu_torch.ops import attention as A
+    from tuch_tpu_torch.parallel import contact_parallel as CPAR
+    opts = cfgmod.parse_config(cfgmod.TrainConfig, train_argv(
+        name, '--backbone', backbone, '--val_and_checkpoint_freq', '0',
+        *flags))
+    if sync_world:      # the step sets BatchNorm's group at each call
+        import torch.distributed as dist
+        from tuch_tpu_torch.models.hmr import sync_batchnorm
+        from tuch_tpu_torch.train import module as TM
+        TM.sync_batchnorm = lambda model, group: sync_batchnorm(
+            model, dist.group.WORLD)
+    tr = train_cli.build(opts)
+    counters = dict(cp_counters(), mha=A.mha_cuda)
+    rec = instrument(tr, counters, stop_after=MESH_TRAIN_STEPS)
+    inner, first = tr.step_fn, {}
+
+    def step(state, batch):        # Adam's first moment after step 1
+        out = inner(state, batch)
+        first.setdefault('mu1', {k: v.clone()
+                                 for k, v in out[0].opt.mu.items()})
+        return out
+    tr.step_fn = step
+    start = {'params': {k: v.detach().clone()
+                        for k, v in tr.state.hmr.named_parameters()},
+             'fits': {'fits': tr.state.fits.clone()},
+             'buffers': {k: v.clone()
+                         for k, v in tr.state.hmr.named_buffers()}}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    n0 = CPAR.CP_CALLS['contact_neighbors_cp']
+    tr.fit()
+    torch.cuda.synchronize()
+    out = dict(step_ms=rec['step_ms'],
+               launches={k: c.launches for k, c in counters.items()},
+               cp_calls=CPAR.CP_CALLS['contact_neighbors_cp'] - n0,
+               rank=0 if tr.mesh is None else tr.mesh.rank,
+               cp_rank=0 if tr.mesh is None else tr.mesh.cp_rank)
+    s = tr.state
+    state = {'params': {k: v.detach() for k, v in s.hmr.named_parameters()},
+             'mu': s.opt.mu, 'mu1': first['mu1'], 'fits': {'fits': s.fits},
+             'buffers': dict(s.hmr.named_buffers())}
+    if tr.is_main:
+        out['losses'] = _train_records(tr)[0]
+    if ref_path == 'save':
+        state.update({'start_' + k: v for k, v in start.items()})
+        torch.save({p: {k: v.cpu() for k, v in t.items()}
+                    for p, t in state.items()}, ref_file)
+    elif ref_path is not None:
+        for key, path in (('vs_ref', ref_file), ('vs_also', also)):
+            if path is not None:
+                out[key] = _mesh_distances(state, torch.load(
+                    path, map_location=DEV, weights_only=True),
+                    tr.options.lr)
+    import hashlib
+    h = hashlib.sha256()
+    for part in ('params', 'mu', 'fits'):
+        for k in sorted(state[part]):
+            h.update(state[part][k].detach().cpu().numpy().tobytes())
+    out['sha'] = h.hexdigest()
+    tr.close()
+    return out
+
+
+def _rel_l2(a, b, keys, base=None):
+    num = den = 0.0
+    for k in keys:
+        w, v = a[k].double(), b[k].double()
+        if base is not None:
+            w, v = w - base[k].double(), v - base[k].double()
+        num += float(((w - v) ** 2).sum())
+        den += float((v ** 2).sum())
+    return (num / den) ** 0.5 if den > 0 else num ** 0.5
+
+
+def _mesh_distances(state, ref, lr):
+    """A mesh run's state against the one-process run's: relative L2 of
+    Adam's first moment and of what the steps changed in the parameters,
+    fits and BatchNorm statistics (from the ref's start_* parts); whether
+    each part is equal bit for bit; and the worst ratio of an element's
+    distance to its element-by-element bar (MESH_GRAD_*), for Adam's
+    first moment and the parameters."""
+    out = {'mu_elem': 0.0, 'params_elem': 0.0}
+    for k in ref['mu']:
+        # per step (tests/_torch_train_parity.moment_bars): the gradient
+        # g_t = (m_t - 0.9 m_(t-1)) / 0.1, its bar rtol |g| + atol max |g|,
+        # the moment's bar carried, m_t's distance within it; the
+        # parameter's bar lr min(2, 3 bar / |m_t|) + 2 ulps, summed over
+        # the steps (assert_params_close)
+        p = ref['params'][k].double()
+        m_prev, bar, lim = 0.0, 0.0, 0.0
+        for t, (m, got) in enumerate(((ref['mu1'][k], state['mu1'][k]),
+                                      (ref['mu'][k], state['mu'][k]))):
+            m, got = m.double(), got.double()
+            g = ((m - 0.9 * m_prev) / 0.1).abs()
+            bar = 0.1 * (MESH_GRAD_RTOL * g + MESH_GRAD_ATOL * float(
+                g.max())) + 0.9 * bar
+            out['mu_elem'] = max(out['mu_elem'], float(
+                ((got - m).abs() / (bar + 1e-30)).max()))
+            lim = lim + lr * torch.clamp(
+                3 * bar / m.abs().clamp(min=1e-30), max=2.0) \
+                + 2.4e-7 * p.abs()
+            m_prev = m
+        dp = (state['params'][k].detach().double() - p).abs()
+        out['params_elem'] = max(out['params_elem'],
+                                 float((dp / lim).max()))
+    for part in ('params', 'mu', 'fits', 'buffers'):
+        keys = sorted(ref[part])
+        base = ref.get('start_' + part)
+        out[part] = _rel_l2(state[part], ref[part], keys, base)
+        out[part + '_bitwise'] = all(torch.equal(state[part][k].detach(),
+                                                 ref[part][k])
+                                     for k in keys)
+    return out
+
+
+def job_eval(args):
+    """Phase 21 on one rank: cli/eval with the job's flags from its own
+    directory (rank 0 writes the result file)."""
+    from tuch_tpu_torch.cli import eval as eval_cli
+    os.chdir(args['cwd'])
+    return eval_cli.main(args['argv'])
+
+
+def job_eft(args):
+    """Phase 21 on one rank: cli/fit_eft --auto_shard. Each rank fits its
+    shard once to warm up (its dropout stream then set back, so the timed
+    fit is the CLI's), then again after a barrier; that window is
+    recorded for images a second."""
+    import torch.distributed as dist
+    from tuch_tpu_torch.cli import fit_eft
+    from tuch_tpu_torch.fitting import eft as EF
+    window = {}
+    fit = EF.EFTFitter.fit
+
+    def timed(self):
+        stream = self.generator.get_state()
+        fit(self)                  # the warm-up (fit restores the weights)
+        self.generator.set_state(stream)
+        self.records = []
+        torch.cuda.synchronize()
+        dist.barrier()
+        window['start'] = time.time()
+        try:
+            return fit(self)
+        finally:
+            torch.cuda.synchronize()
+            window['end'] = time.time()
+            window['records'] = self.records
+    EF.EFTFitter.fit = timed
+    written = fit_eft.main(args['argv'])
+    return dict(written=written, **window)
+
+
+def bn_control(group):
+    """Phase 20's control of ResNet-50's BatchNorm over the dp ranks of
+    `group`, run by those ranks after their cli/train run: the backbone's
+    train-mode forward and backward at full width on one global batch of
+    TRAIN_B images from a seed, the gradients of sum(w * pooled features)
+    (a sum over the batch, so the ranks' gradients add), in float64 and in
+    float32. Against one process on the whole batch (rank 0 alone): dp
+    with the statistics synced over the group, as cli/train runs it; dp
+    without the sync, what a missing sync does; and, in float32, one
+    process on the batch in reverse row order, what float32 rounding alone
+    does (the same function, summed in another order). Returns on rank 0,
+    per dtype and run: the relative L2 of the gradients, of Adam's first
+    update g / (|g| + eps) and of the running statistics' change, and the
+    worst element's ratio to the BN64 bars (gradients and statistics)."""
+    import copy
+    import torch.distributed as dist
+    from tuch_tpu_torch.models.hmr import HMR, sync_batchnorm
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    torch.manual_seed(0)
+    base = HMR(np.tile([1.0, 0, 0, 1, 0, 0], 24), np.zeros(10),
+               np.array([0.9, 0, 0]), backbone='resnet50').train()
+    gen = torch.Generator().manual_seed(5)
+    img = torch.randn(TRAIN_B, 224, 224, 3, generator=gen) * 0.5
+    w = torch.randn(TRAIN_B, 2048, generator=gen)
+    per = TRAIN_B // world
+    mine = slice(rank * per, (rank + 1) * per)
+
+    def stats(m):
+        return torch.cat([b.reshape(-1) for n, b in m.named_buffers()
+                          if 'running' in n])
+
+    def run(start, dtype, rows, sync, reverse=False):
+        m = copy.deepcopy(start)
+        sync_batchnorm(m, group if sync else None)
+        x, ww = img[rows].to(DEV, dtype), w[rows].to(DEV, dtype)
+        if reverse:
+            x, ww = x.flip(0), ww.flip(0)
+        x = m.maxpool(m.relu(m.bn1(m.conv1(x.permute(0, 3, 1, 2)))))
+        for i in range(1, 5):
+            x = getattr(m, f'layer{i}')(x)
+        params = [q for n, q in m.named_parameters()
+                  if n.startswith(('conv1', 'bn1', 'layer'))]
+        grads = torch.autograd.grad((x.mean((2, 3)) * ww).sum(), params)
+        return [g.detach() for g in grads], stats(m)
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        start = copy.deepcopy(base).to(DEV, dtype)
+        s0 = stats(start)
+        runs = {}
+        if rank == 0:
+            runs['one'] = run(start, dtype, slice(None), False)
+        for name, sync in (('dp', True), ('no_sync', False)):
+            grads, st = run(start, dtype, mine, sync)
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            runs[name] = (list(flat.split([g.numel() for g in grads])), st)
+        if rank != 0:
+            continue
+        if dtype == torch.float32:
+            runs['reversed'] = run(start, dtype, slice(None), False, True)
+        g1, st1 = runs.pop('one')
+        flat1 = torch.cat([g.reshape(-1) for g in g1]).double()
+        u1 = flat1 / (flat1.abs() + 1e-8)
+        for name, (g, st) in runs.items():
+            flat = torch.cat([t.reshape(-1) for t in g]).double()
+            elem = max(float(((a.reshape(-1) - b.reshape(-1)).abs() / (
+                BN64_RTOL * b.abs().reshape(-1) + BN64_ATOL
+                * b.abs().max())).max()) for a, b in zip(g, g1))
+            elem = max(elem, float(((st - st1).abs() / (
+                BN64_RTOL * st1.abs() + BN64_ATOL * st1.abs().max())).max()))
+            out[(str(dtype).split('.')[-1], name)] = dict(
+                grads=_rel_l2({0: flat}, {0: flat1}, [0]),
+                update=_rel_l2({0: flat / (flat.abs() + 1e-8)}, {0: u1}, [0]),
+                stats=_rel_l2({0: st}, {0: st1}, [0], {0: s0}), elem=elem)
+        del start, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def job_train(args):
+    """Phase 20 on one rank, against the one-process run's saved state;
+    then, where asked, bn_control over the world's ranks."""
+    import torch.distributed as dist
+    out = mesh_train_run(args['name'], args['backbone'], args['flags'],
+                         args.get('ref'), args.get('ref_file', MESH_REF),
+                         args.get('sync_world', False), args.get('also'))
+    if args.get('bn_control'):
+        t0 = time.perf_counter()
+        out['bn_control'] = bn_control(dist.group.WORLD)
+        out['bn_control_s'] = time.perf_counter() - t0
+    return out
+
+
+RANK_JOBS = dict(
+    contact=job_contact, nccl1=job_nccl1, nccl2=job_nccl2, eval=job_eval,
+    eft=job_eft, train=job_train)
+
+
+def _global_rows(outs, key):
+    """A per-rank output as the global batch: cp rank 0's rows of each dp
+    row in dp order."""
+    mine = sorted((o for o in outs if o['cp_rank'] == 0),
+                  key=lambda o: o['dp_rank'])
+    return torch.cat([o[key] for o in mine])
+
+
+def _hold_masked_min_range(runtime, verts, results):
+    """Kernel 4's range entry on the posed B=64 body over the cuts of cp 2
+    and 4: each range against its plain version (d2 rtol D2_RTOL, another
+    argmin only at a tie), the MIN of the ranges equal to the whole-axis
+    kernel bit for bit; then its time on the first cp=2 range beside the
+    plain version's and its bound."""
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    from tuch_tpu_torch.parallel.contact_parallel import shard_range
+    mask, bits = runtime.contact.geomask, runtime.contact.geomask_bits
+    B, V, _ = verts.shape
+    whole = CK.masked_min_dist_cuda(verts, mask, bits)
+    err = 0.0
+    for cp in (2, 4):
+        keys = []
+        for r in range(cp):
+            lo, hi = shard_range(V, cp, r)
+            got = CK.masked_min_keys_cuda(verts, mask, bits, lo, hi)
+            want = torch.cat(_chunked(lambda v: CK.masked_min_keys_ref(
+                v, mask, lo, hi), verts))
+            gd, ga = CK.decode_keys(got)
+            wd, wa = CK.decode_keys(want)
+            fin = torch.isfinite(wd)
+            check(torch.equal(fin, torch.isfinite(gd)),
+                  f'masked_min_range [{lo}, {hi}): inf rows differ')
+            e = (gd - wd)[fin].abs().max().item() if fin.any() else 0.0
+            rel = ((gd - wd).abs()[fin] <= D2_RTOL * wd[fin]).all().item()
+            diff = verts - torch.gather(verts, 1, ga.long()[..., None]
+                                        .expand(-1, -1, 3))
+            pick = (diff * diff).sum(-1)
+            differ = (ga != wa) & fin
+            ties = ((pick - wd).abs()[differ]
+                    <= D2_RTOL * wd[differ]).all().item()
+            check(rel and ties, f'masked_min_range [{lo}, {hi}): rel {rel}, '
+                  f'ties {ties}')
+            err = max(err, e)
+            keys.append(got)
+        d2, arg = CK.decode_keys(torch.stack(keys).amin(0))
+        same = torch.equal(d2, whole[0]) and torch.equal(arg, whole[1])
+        print(f'[kernel] masked_min_range posed B={B} over the cuts of cp='
+              f'{cp}: d2 max_abs_err {err:.3g} against the plain keys (rtol '
+              f'{D2_RTOL}, argmin ties), MIN of the ranges equal to the '
+              f'whole-axis kernel bit for bit {same}', flush=True)
+        check(same, f'masked_min_range cp={cp}: MIN of ranges != kernel 4')
+    lo, hi = shard_range(V, 2, 0)
+    ms = graph_ms(lambda: CK.masked_min_keys_cuda(verts, mask, bits, lo, hi),
+                  iters=10)
+    plain_ms = cuda_ms(lambda: _chunked(lambda v: CK.masked_min_keys_ref(
+        v, mask, lo, hi), verts), iters=2, warmup=1)
+    allowed = int(mask[:, lo:hi].sum().item())
+    bound_ms, bound_by = bound(
+        B * (V * (hi - lo) + MASKED_OPS_ALLOWED * allowed),
+        V * (hi - lo) + 12 * B * V + 8 * B * V)
+    print(f'[kernel] masked_min_range B={B} V={V} range [{lo}, {hi}): '
+          f'kernel {ms:.4f} ms (CUDA-graph replay, device time), plain '
+          f'{plain_ms:.4f} ms, no one-call library equivalent, bound '
+          f'{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound',
+          flush=True)
+    results['masked_min_range'] = dict(ms=ms, plain_ms=plain_ms,
+                                       library_ms=None, bound_ms=bound_ms,
+                                       bound_by=bound_by, max_abs_err=err)
+
+
+def phase_cp_contact(runtime, card, results, launches):
+    """Phase 19: contact on cp meshes of ranks sharing the card."""
+    from tuch_tpu_torch.fitting import smplify_dc as PF
+    from tuch_tpu_torch.losses import smplify as PL
+    from tuch_tpu_torch.ops import contact_kernels as CK
+    contact = runtime.contact
+    verts = posed_verts(runtime.smpl, TRAIN_B, 0.3, 99)
+    _hold_masked_min_range(runtime, verts, results)
+    wn = CK.winding_numbers_faces(verts, verts, contact.faces).cpu()
+    band = (wn - 0.99).abs() < WN_BAND
+    single = {'exact': PL.contact_neighbors(verts, contact),
+              'candidate': PL.contact_neighbors(verts, contact,
+                                                candidate_k=CP_K)}
+    single = {k: (e.cpu(), a.cpu()) for k, (e, a) in single.items()}
+    P = contact.region_idx_a.shape[0]
+    fit = PF.smplify_dc(runtime.smpl, runtime.prior, contact,
+                        *_cp_fit_inputs(P), config=_cp_fit_config(None))
+    fit_verts = fit.vertices.cpu()
+    step = body_stepper((runtime.smpl, runtime.prior, contact),
+                        fit_inputs(TRAIN_B, P, 21, DEV))
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CP_TIMED):
+        step()
+    torch.cuda.synchronize()
+    iter_ms = {(1, 1): 1e3 * (time.perf_counter() - t0) / CP_TIMED}
+    segs = 1 if contact.segment_tables is not None else 0
+    range_launches = 0
+    for dp, cp in CP_MESHES:
+        outs = run_ranks('contact', dp * cp, dict(dp=dp, cp=cp))
+        for route in ('exact', 'candidate'):
+            ext = _global_rows([dict(o, r=o[route][0]) for o in outs], 'r')
+            arg = _global_rows([dict(o, r=o[route][1]) for o in outs], 'r')
+            want_e, want_a = single[route]
+            flips = ((ext != want_e) & ~band).sum().item()
+            in_band = ((ext != want_e) & band).sum().item()
+            differ = (arg != want_a)
+            pick_ok = True
+            if differ.any():
+                v = verts.cpu()
+                dg = v - torch.gather(v, 1, arg.long()[..., None].expand(
+                    -1, -1, 3))
+                dw = v - torch.gather(v, 1, want_a.long()[..., None].expand(
+                    -1, -1, 3))
+                pg, pw = (dg * dg).sum(-1), (dw * dw).sum(-1)
+                pick_ok = bool(((pg - pw).abs()[differ]
+                                <= D2_RTOL * pw[differ]).all())
+            # per rank: kernel 2 once on its triangle shard (once more for
+            # the segments' own test), the range entry once, kernel 4's
+            # whole-axis entry never
+            want_l = {'winding': 1 + segs, 'masked_min_range': 1,
+                      'masked_min': 0}
+            if route == 'candidate':
+                want_l['gather'] = 1
+            got_l = [{k: o['launches'][route][k] for k in want_l}
+                     for o in outs]
+            print(f'[cp] dp={dp} cp={cp} contact_neighbors {route}: in/out '
+                  f'flips outside the band |wn - 0.99| < {WN_BAND} {flips}, '
+                  f'inside {in_band}; argmin differs at '
+                  f'{differ.sum().item()} (ties within rtol {D2_RTOL} '
+                  f'{pick_ok}); launches per rank {got_l[0]} (every rank '
+                  f'the same {all(g == got_l[0] for g in got_l)}), '
+                  f'cp calls {outs[0]["launches"][route]["cp_calls"]}',
+                  flush=True)
+            check(flips == 0 and pick_ok, f'cp {dp}x{cp} {route}: flips '
+                  f'{flips}, argmin beyond a tie')
+            check(all(g == want_l for g in got_l),
+                  f'cp {dp}x{cp} {route}: launches {got_l} != {want_l}')
+            check(all(o['launches'][route]['cp_calls'] >= 1 for o in outs),
+                  f'cp {dp}x{cp} {route}: no contact_parallel call')
+        fv = _global_rows(outs, 'fit_vertices')
+        verr = (fv - fit_verts).abs().max().item()
+        fl = outs[0]['fit_launches']
+        range_launches += sum(o['fit_launches']['masked_min_range']
+                              for o in outs)
+        iter_ms[(dp, cp)] = max(o['iter_ms'] for o in outs)
+        print(f'[cp] dp={dp} cp={cp} SMPLify-DC {CP_FIT_ITERS}+'
+              f'{CP_FIT_ITERS} iterations at B={TRAIN_B} with '
+              f'SMPLifyConfig(mesh): vertices against one process max abs '
+              f'{verr:.3g} m (bar {VERTEX_TOL}), bit for bit '
+              f'{bool(verr == 0)}; rank 0 launches {fl}', flush=True)
+        check(verr <= VERTEX_TOL, f'cp {dp}x{cp} fit vertices {verr}')
+        check(fl['masked_min_range'] == CP_FIT_ITERS
+              and fl['masked_min'] == 0,
+              f'cp {dp}x{cp} fit: range entry {fl}')
+    launches['masked_min_range'] = range_launches
+    times = ', '.join(f'dp={d} cp={c} {ms:.3f}' for (d, c), ms in
+                      iter_ms.items())
+    print(f'[times cp] ms per body iteration at B={TRAIN_B} (refresh, loss '
+          f'and gradient, Adam; host clock, mean of {CP_TIMED}, slowest '
+          f'rank; the ranks share the card over gloo): {times}; card: '
+          f'{card}', flush=True)
+    # NCCL: one rank on the card, then two ranks asked to share it
+    t0 = time.perf_counter()
+    one, = run_ranks('nccl1', 1, {})
+    check(one['backend'] == 'nccl' and bool((one['value'] == 1).all()),
+          f'nccl at world size 1: {one}')
+    print(f'[nccl] world size 1: backend {one["backend"]}, all_reduce ok '
+          f'({time.perf_counter() - t0:.1f} s with the process start)',
+          flush=True)
+    codes, failed, res, texts = run_ranks('nccl2', 2, {}, timeout=120,
+                                          expect_fail=True)
+    found = [None if o is None else (o['ok'], o['error']) for o in res]
+    tails = [t.strip().splitlines()[-1:] for t in texts]
+    print(f'[nccl] two ranks on one card with NCCL: exit codes {codes} '
+          f'({failed or "ended"}); per rank (all_reduce ok, error) {found}; '
+          f'last log lines {tails}', flush=True)
+
+
+def hold_bn_control(c, seconds, card):
+    """bn_control's readings (rank 0), printed and held: dp in float64
+    equal to one process at the BN64 bars, element by element, and the
+    same bars failed by dp without the sync, so that they would see one;
+    in float32, dp within BN32_FACTOR of what a reversed batch order does
+    (plus MESH_GRAD_RTOL)."""
+    for (dt, run), d in sorted(c.items()):
+        print(f'[mesh train] BatchNorm control, ResNet-50 backbone B='
+              f'{TRAIN_B} at 224 px, {dt}, {run} against one process: '
+              f'relative L2 of the gradients {d["grads"]:.3g}, of Adam\'s '
+              f'first update {d["update"]:.3g}, of the running statistics\' '
+              f'change {d["stats"]:.3g}; worst element to the bars (rtol '
+              f'{BN64_RTOL}, atol {BN64_ATOL} of each tensor\'s largest) '
+              f'{d["elem"]:.3g}', flush=True)
+    print(f'[mesh train] BatchNorm control in {seconds:.1f} s; card: {card}',
+          flush=True)
+    check(c[('float64', 'dp')]['elem'] <= 1,
+          f'BatchNorm over dp in float64: {c[("float64", "dp")]}')
+    check(c[('float64', 'no_sync')]['elem'] > 1,
+          'BatchNorm control: dp without the sync passes the float64 bars')
+    dp, rev = c[('float32', 'dp')], c[('float32', 'reversed')]
+    check(all(dp[k] <= BN32_FACTOR * rev[k] + MESH_GRAD_RTOL
+              for k in ('grads', 'update')),
+          f'BatchNorm over dp in float32: {dp} against reversed {rev}')
+
+
+def phase_mesh_train(card):
+    """Phase 20: cli/train --run_smplify on 2-rank meshes, against one
+    process: ResNet-50 with --mesh_cp 2 (against one process as a user
+    runs it) and with --mesh_dp 2 (against one process on the mesh's
+    BatchNorm, a group of 1, and the ranks then run bn_control), ViT-S/16
+    with --mesh_dp 2."""
+    for backbone, meshes in (
+            ('resnet50', (['--mesh_dp', '1', '--mesh_cp', '2'],
+                          ['--mesh_dp', '2'])),
+            ('vit_s16', (['--mesh_dp', '2'],))):
+        one = mesh_train_run(f'par_one_{backbone}', backbone, [],
+                             ref_path='save')
+        print(f'[mesh train] one process, {backbone} B={TRAIN_B}: ms per '
+              f'step {np.round(one["step_ms"], 1).tolist()}; launches '
+              f'{one["launches"]}', flush=True)
+        for flags in meshes:
+            tag = f'{backbone} ' + ' '.join(flags)
+            dp_bn = backbone == 'resnet50' and '--mesh_cp' not in flags
+            ref = dict(ref='compare')
+            if dp_bn:
+                one, = run_ranks('train', 1, dict(
+                    name=f'par_one_sync_{backbone}', backbone=backbone,
+                    flags=[], ref='save', ref_file=MESH_REF_SYNC,
+                    sync_world=True))
+                print(f'[mesh train] one process on the mesh\'s BatchNorm '
+                      f'(a group of 1), {backbone} B={TRAIN_B}: ms per step '
+                      f'{np.round(one["step_ms"], 1).tolist()}', flush=True)
+                ref.update(ref_file=MESH_REF_SYNC, also=MESH_REF)
+            outs = run_ranks('train', 2, dict(
+                name='par_' + tag.replace(' ', ''), backbone=backbone,
+                flags=flags, bn_control=dp_bn, **ref))
+            main = outs[0]
+            if dp_bn:
+                hold_bn_control(main['bn_control'], main['bn_control_s'],
+                                card)
+            d = main['vs_ref']
+            gaps = {s: abs(main['losses'][s]['train/loss']
+                           - one['losses'][s]['train/loss'])
+                    / abs(one['losses'][s]['train/loss'])
+                    for s in sorted(one['losses'])}
+            cp_equal = all(o['sha'] == outs[o['rank'] - o['cp_rank']]['sha']
+                           for o in outs)
+            print(f'[mesh train] {tag}, 2 ranks on the card: ms per step '
+                  f'(rank 0) {np.round(main["step_ms"], 1).tolist()}; '
+                  f'relative L2 to one process: mu {d["mu"]:.3g} (bar '
+                  f'{MESH_GAP["mu"]}), parameter updates '
+                  f'{d["params"]:.3g} (bar {MESH_GAP["params"]}), '
+                  f'fits updates {d["fits"]:.3g} (bar {MESH_GAP["fits"]}), '
+                  f'BatchNorm statistics\' change {d["buffers"]:.3g} (bar '
+                  f'{MESH_GAP["buffers"]}); element by element, worst ratio '
+                  f'to the bar: mu {d["mu_elem"]:.3g}, parameters '
+                  f'{d["params_elem"]:.3g}; bit for bit: params '
+                  f'{d["params_bitwise"]}, fits {d["fits_bitwise"]}; loss '
+                  f'gap per step { {s: f"{g:.3g}" for s, g in gaps.items()} } '
+                  f'(bar {TRAIN_LOSS_RTOL}); cp peers bit for bit '
+                  f'{cp_equal}; contact_neighbors_cp calls '
+                  f'{main["cp_calls"]}; launches {main["launches"]}; card: '
+                  f'{card}', flush=True)
+            if dp_bn:
+                a = main['vs_also']
+                print(f'[mesh train] {tag} against one process on its own '
+                      f'BatchNorm kernel (float32 rounding amplified, not '
+                      f'held): relative L2 mu {a["mu"]:.3g}, parameter '
+                      f'updates {a["params"]:.3g}, fits updates '
+                      f'{a["fits"]:.3g}, BatchNorm statistics\' change '
+                      f'{a["buffers"]:.3g}', flush=True)
+            for part in MESH_GAP:
+                check(d[part] <= MESH_GAP[part],
+                      f'mesh train {tag}: {part} {d[part]}')
+            if not dp_bn:
+                check(d['mu_elem'] <= 1 and d['params_elem'] <= 1,
+                      f'mesh train {tag}: element by element {d}')
+            if backbone == 'vit_s16':
+                check(main['launches']['mha'] > 0, f'{tag}: no mha launch')
+            check(all(g <= TRAIN_LOSS_RTOL for g in gaps.values()),
+                  f'mesh train {tag}: loss gaps {gaps}')
+            check(cp_equal, f'mesh train {tag}: cp peers differ')
+            if '--mesh_cp' in flags:
+                check(main['cp_calls'] > 0, f'{tag}: no cp call')
+        for path in (MESH_REF, MESH_REF_SYNC):
+            if os.path.exists(path):
+                os.remove(path)
+    shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
+
+
+def phase_mesh_eval_eft(card):
+    """Phase 21: cli/eval --mesh_dp 2, and cli/fit_eft --auto_shard on 1,
+    2 and 4 processes sharing the card."""
+    from tuch_tpu_torch.cli import eval as eval_cli
+    from tuch_tpu_torch.cli import fit_eft
+    argv = ['--synthetic', '--synthetic_samples', str(MESH_EVAL_N),
+            '--batch_size', str(TRAIN_B), '--num_workers', '8',
+            '--log_freq', '1000', '--result_file', 'mesh_eval.npz',
+            '--device', DEV]
+    cwd = os.getcwd()
+    dirs = {k: os.path.abspath(os.path.join(PAR_DIR, f'eval_{k}'))
+            for k in ('one', 'mesh')}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    os.chdir(dirs['one'])
+    try:
+        t0 = time.perf_counter()
+        eval_cli.main(argv)
+        one_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    t0 = time.perf_counter()
+    run_ranks('eval', 2, dict(cwd=dirs['mesh'], argv=argv + ['--mesh_dp',
+                                                             '2']))
+    mesh_s = time.perf_counter() - t0
+    a = np.load(os.path.join(dirs['one'], 'out', 'mesh_eval.npz'))
+    b = np.load(os.path.join(dirs['mesh'], 'out', 'mesh_eval.npz'))
+    err = {k: float(np.max(np.abs(b[k] - a[k]) / np.maximum(np.abs(a[k]),
+                                                            1e-30)))
+           for k in ('mpjpe', 'recon_err')}
+    print(f'[mesh eval] cli/eval --mesh_dp 2 ({MESH_EVAL_N} samples, '
+          f'batches of {TRAIN_B} and a ragged {MESH_EVAL_N % TRAIN_B}): '
+          f'per-image relative difference to one process {err} (rtol 1e-4); '
+          f'one process {one_s:.1f} s, 2 ranks {mesh_s:.1f} s with their '
+          f'start (host clock); card: {card}', flush=True)
+    check(all(e <= 1e-4 for e in err.values()) and a['mpjpe'].shape
+          == (MESH_EVAL_N,), f'mesh eval: {err}')
+
+    # EFT: each rank count's merged shards against one process fitting
+    # the same shards (--sidx/--cbs) on this card
+    import tempfile
+    from tuch_tpu_torch import runtime as rt
+    from tuch_tpu_torch.data.dataset import (TuchDataset, load_db,
+                                             synthetic_db)
+    from tuch_tpu_torch.fitting.eft import EFTFitter, merge_shards
+    base = ['--synthetic', '--max_steps', str(MESH_EFT_STEPS), '--device',
+            DEV]
+    runtime = rt.build_runtime(device=DEV, synthetic=True, with_contact=True)
+    P = len(runtime.contact_classes)
+    rates = {}
+    for world in (1, 2, 4):
+        out_dir = os.path.abspath(os.path.join(PAR_DIR, f'eft_{world}'))
+        outs = run_ranks('eft', world, dict(argv=base + [
+            '--auto_shard', '--out_dir', out_dir]))
+        shards = [w for o in outs for w in o['written']]
+        merged = fit_eft.main(base + ['--out_dir', out_dir, '--merge',
+                                      *shards])[0]
+        n = sum(len(o['records']) for o in outs)
+        start = min(o['start'] for o in outs)
+        rates[world] = n / (max(o['end'] for o in outs) - start)
+        # one process, the same shards in turn
+        cbs = -(-4 // world)
+        ref_dir = out_dir + '_ref'
+        with tempfile.TemporaryDirectory() as d:
+            ns = fit_eft.parse_args(base + ['--out_dir', ref_dir])
+            db = synthetic_db(4, img_dir=d, seed=ns.seed,
+                              num_contact_classes=P)
+            ds = TuchDataset(ns, 'dsc_df', data=db, img_dir=d,
+                             use_augmentation=False, num_contact_classes=P)
+            ref_shards = []
+            for r in range(world):
+                ns.sidx, ns.cbs = r, cbs
+                ref_shards.append(EFTFitter(
+                    ns, 'dsc_df', ds, runtime.hmr, runtime.smpl,
+                    runtime.contact, out_dir=ref_dir).fit())
+            ref = merge_shards(ref_shards, ds.data,
+                               os.path.join(ref_dir, 'merged.pt'))
+        got, want = load_db(merged), load_db(ref)
+        same = all(np.array_equal(got[k], want[k]) for k in ('pose',
+                                                             'betas'))
+        gap = max(float(np.abs(got[k] - want[k]).max()) for k in ('pose',
+                                                                 'betas'))
+        steps = [r[1] for o in outs for r in o['records']]
+        print(f'[mesh eft] cli/fit_eft --auto_shard on {world} process(es) '
+              f'sharing the card: {n} images in {1 / rates[world] * n:.2f} s, '
+              f'{rates[world]:.3f} images/s (host clock from the ranks\' '
+              f'common start, each warmed by one fit of its shard), steps '
+              f'{steps}; merged fits equal one process fitting the same '
+              f'shards in turn bit for bit {same} (max abs {gap:.3g})',
+              flush=True)
+        check(same, f'mesh eft {world}: merged fits differ by {gap}')
+    print(f'[times mesh eft] images/s by processes sharing the card '
+          f'{ {w: round(r, 3) for w, r in rates.items()} }; card: {card}',
+          flush=True)
+
+
+def parallel_phases(card, results=None, launches=None):
+    """Phases 19-21 (the build first, once, before any rank starts)."""
+    from tuch_tpu_torch import runtime as rt
+    t0 = time.perf_counter()
+    os.makedirs(PAR_DIR, exist_ok=True)
+    fit_rt = rt.build_runtime(device=DEV, synthetic=True, with_contact=True)
+    phase_cp_contact(fit_rt, card, {} if results is None else results,
+                     {} if launches is None else launches)
+    del fit_rt
+    torch.cuda.empty_cache()
+    clock('20')
+    phase_mesh_train(card)
+    clock('21')
+    phase_mesh_eval_eft(card)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    print(f'[parallel] phases 19-21 in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+
+
 def offline_phases(card):
     """Phases 1, 7 (kernels 5 and 6 among them), 17 and 18 alone, with
     their checks; no result lines."""
@@ -3021,11 +3979,18 @@ def main(argv=None) -> int:
     p.add_argument('--offline', action='store_true',
                    help='phases 1, 7, 17 and 18 alone, with no result '
                         'lines')
+    p.add_argument('--parallel', action='store_true',
+                   help='phases 1 and 19-21 (the device mesh) alone, with '
+                        'no result lines')
+    p.add_argument('--rank_job', help=argparse.SUPPRESS)
+    p.add_argument('--job_dir', help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
     import tuch_tpu_torch  # noqa: F401  (fails outside the repository)
+    if args.rank_job:              # one rank of phases 19-21 (run_ranks)
+        return rank_job(args.rank_job, args.job_dir)
     card = card_line()
     kinds = torch.cuda.get_device_name(0)
     print(f'[device] {kinds}; torch {torch.__version__}, CUDA '
@@ -3034,6 +3999,13 @@ def main(argv=None) -> int:
         return trainer_phases(card)
     if args.offline:
         return offline_phases(card)
+    if args.parallel:
+        t0 = time.perf_counter()
+        phase_build()
+        parallel_phases(card)
+        print(f'chip_smoke --parallel: every check passed in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        return 0
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
     # are pinned off for phases 2-5, 7-9 and 12's parity and restored to
@@ -3046,6 +4018,7 @@ def main(argv=None) -> int:
 
     kernels, launches = {}, {}
     phase_build()
+    clock('2')
     phase_kernels(kernels)
     predictors = {f'{bb} {dt}': phase_serve(bb, dt, launches)
                   for bb in ('vit_s16', 'resnet50')
@@ -3063,21 +4036,25 @@ def main(argv=None) -> int:
           f'{tuple(fit_rt.contact.geomask.shape)} uint8, '
           f'{len(fit_rt.contact_classes)} region pairs, '
           f'{len(fit_rt.contact.segment_tables.names)} segments)', flush=True)
+    clock('7')
     phase_slice_kernels(fit_rt, kernels)
     demo_out = phase_fit(fit_rt, launches)
     phase_fit_parity(fit_rt)
 
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
         = tf32
+    clock('6')
     for tag, pred in predictors.items():
         phase_times(tag, pred, card)
     phase_hmr_options(card)
     phase_fit_times(fit_rt, card, demo_out)
+    clock('11')
     phase_routes(fit_rt, kernels, launches)
 
     # phase 12 last, so its CPU steps run after every earlier time
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    clock('12')
     for bb in ('resnet50', 'vit_s16'):
         phase_train_parity(fit_rt, bb)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 \
@@ -3085,17 +4062,23 @@ def main(argv=None) -> int:
     bare_ms = {bb: phase_train_times(fit_rt, bb, card, kernels)
                for bb in ('resnet50', 'vit_s16')}
     # phases 13 and 14: the trainer and eval entry points
+    clock('13')
     checkpoint = phase_train_loop(fit_rt, card, bare_ms['resnet50'])
     phase_eval(checkpoint, card)
     shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
     # phases 15 and 16: EFT, and the demo with its renders
+    clock('15')
     phase_eft(fit_rt, card)
     phase_demo(card)
     # phases 17 and 18: the offline tools, and the port's own databases on
     # the real-format path
     del fit_rt
+    clock('17')
     phase_smplx_to_smpl(card)
     phase_real_format(card)
+    # phases 19-21: the device mesh, ranks sharing the card
+    clock('19')
+    parallel_phases(card, kernels, launches)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
     rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',
@@ -3106,6 +4089,7 @@ def main(argv=None) -> int:
     for name, src, rep in (
             ('winding', 'winding.cu', 'contact_pallas.py:85'),
             ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),
+            ('masked_min_range', 'masked_min.cu', 'contact_pallas.py:404'),
             ('gather', 'gather.cu', 'gather_pallas.py:61'),
             ('scatter_add', 'gather.cu', 'gather_pallas.py:84'),
             ('winding_affine', 'winding_affine.cu', 'contact_pallas.py:205'),

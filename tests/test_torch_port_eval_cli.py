@@ -50,7 +50,9 @@ def test_eval_cli_matches_jax_and_bn_fold(tmp_path, monkeypatch, capsys):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=RTOL, err_msg=k)
         assert abs(folded[k] - got[k]) <= BN_FOLD_MM, k
-    with pytest.raises(NotImplementedError, match='parallel/'):
+    # one process cannot hold a 2-rank mesh (the working one:
+    # tests/test_torch_port_parallel_eval.py)
+    with pytest.raises(ValueError, match='torchrun --nproc_per_node 2'):
         peval_cli.main(argv + ['--device', 'cpu', '--mesh_dp', '2'])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         peval_cli.main(argv)

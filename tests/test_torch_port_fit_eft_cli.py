@@ -146,8 +146,14 @@ def test_merge_read_by_both_loaders(runs, tmp_path, monkeypatch, writer):
         np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-def test_auto_shard_raises():
-    with pytest.raises(NotImplementedError, match='--auto_shard'):
+def test_auto_shard_raises(monkeypatch):
+    """--auto_shard under a partial torchrun environment raises rather
+    than fit every image in each process (the working split:
+    tests/test_torch_port_parallel_eval.py)."""
+    for k in ('MASTER_ADDR', 'MASTER_PORT', 'RANK'):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    with pytest.raises(ValueError, match='partial torchrun environment'):
         pcli.main(ARGV + ['--auto_shard', '--device', 'cpu'])
 
 

@@ -579,6 +579,51 @@ def test_masked_min_kernel_matches_plain_version_on_card(cuda_device, B, V):
     assert torch.equal(d2c, d2) and torch.equal(argc, arg)
 
 
+def test_masked_min_keys_cpu_dispatch_and_refusal():
+    """The range entry's dispatch takes the plain keys on the CPU without
+    counting a launch; its wrapper refuses a CPU tensor and a range that
+    does not start and end on mask words."""
+    verts, _ = _body(B=2, V=100, F=3)
+    mask = (torch.rand(100, 100, generator=torch.Generator().manual_seed(0))
+            > 0.3).to(torch.uint8)
+    before = CK.masked_min_keys_cuda.launches
+    keys = CK.masked_min_keys(verts, mask, None, 32, 100)
+    assert CK.masked_min_keys_cuda.launches == before
+    assert torch.equal(keys, CK.masked_min_keys_ref(verts, mask, 32, 100))
+    bits = CK.pack_mask_bits(mask)
+    with pytest.raises(ValueError, match='CUDA'):
+        CK.masked_min_keys_cuda(verts, mask, bits, 0, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,V,cuts', [
+    (1, 300, (0, 128, 300)), (3, 1000, (0, 256, 512, 768, 1000)),
+    (2, 6890, (0, 3456, 6890)), (2, 6890, (0, 1728, 3456, 5184, 6890))])
+def test_masked_min_range_entry_matches_plain_keys_on_card(cuda_device, B,
+                                                           V, cuts):
+    """Kernel 4's range entry over ranges that cover the axis: one launch
+    each; the MIN of their keys decodes to the whole-axis kernel's answer
+    bit for bit (the same arithmetic), and to the plain version at kernel
+    4's bars (_hold_masked_min); an empty range is all EMPTY_KEY."""
+    verts, _ = _body(B=B, V=V, F=3, device=cuda_device)
+    rng = np.random.RandomState(3)
+    allowed = rng.rand(V, V) > 0.3
+    allowed[5] = False
+    mask = torch.from_numpy(allowed.astype(np.uint8)).to(cuda_device)
+    bits = CK.pack_mask_bits(mask)
+    before = CK.masked_min_keys_cuda.launches
+    keys = [CK.masked_min_keys(verts, mask, bits, a, b)
+            for a, b in zip(cuts, cuts[1:])]
+    torch.cuda.synchronize()
+    assert CK.masked_min_keys_cuda.launches == before + len(keys)
+    d2, arg = CK.decode_keys(torch.stack(keys).amin(0))
+    whole = CK.masked_min_dist(verts, mask, bits)
+    assert torch.equal(d2, whole[0]) and torch.equal(arg, whole[1])
+    _hold_masked_min(verts, mask, d2, arg)
+    empty = CK.masked_min_keys(verts, mask, bits, V, V)
+    assert (empty == CK.EMPTY_KEY).all()
+
+
 def _hold_masked_min(verts, mask, d2, arg):
     """Kernel 4's bars against the plain version (chip_smoke.py phase 7):
     d2 at rtol 1e-6, another argmin only at a tie of the plain d2 within

@@ -158,7 +158,11 @@ OFFLINE_MODULES = ('data.preprocess', 'data.preprocess.dsc',
                    'fitting.smplx_to_smpl', 'cli.smplx_to_smpl',
                    'cli.export_torch', 'cli.parity', 'models.torch_ref',
                    'utils.error_measures', 'utils.dload', 'utils.timing')
-NAMED_MODULES = SLICE5_MODULES + SLICE6_MODULES + OFFLINE_MODULES
+# and parallel/, the device mesh on torch.distributed
+PARALLEL_MODULES = ('parallel', 'parallel.mesh', 'parallel.multihost',
+                    'parallel.contact_parallel')
+NAMED_MODULES = SLICE5_MODULES + SLICE6_MODULES + OFFLINE_MODULES \
+    + PARALLEL_MODULES
 
 
 def test_port_imports_no_jax_and_nothing_of_tuch_tpu():

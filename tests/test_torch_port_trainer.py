@@ -217,7 +217,10 @@ def test_fast_profile_fills_what_jax_fills(tmp_path, argv):
 
 @pytest.mark.parametrize('flag', ['--mesh_dp', '--mesh_cp'])
 def test_unported_mesh_raises(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match='parallel/'):
+    """A 2-rank mesh asked for in one process (no torchrun): the mesh does
+    not fit the world size, and the error says how to launch it (the
+    working mesh: tests/test_torch_port_parallel_train.py)."""
+    with pytest.raises(ValueError, match='torchrun --nproc_per_node 2'):
         port_trainer(tmp_path, 'm', flag, '2')
 
 

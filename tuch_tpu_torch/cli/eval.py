@@ -9,7 +9,10 @@ flags plus --device:
 --synthetic evaluates on the synthetic body and a synthetic test set
 (alternating genders; 17 rows of the body's joint regressor stand in for
 the H36M regressor), whose images are written under out/synthetic_eval.
---mesh_dp above 1 raises: the device mesh is not ported.
+--mesh_dp N runs on N ranks, one process each, launched by torchrun
+(torchrun --nproc_per_node N -m tuch_tpu_torch.cli.eval --mesh_dp N ...):
+each full batch is split over them, a ragged last batch runs whole on
+every rank, and rank 0 prints and writes the result file.
 """
 
 import argparse
@@ -51,8 +54,14 @@ def run(args):
     from tuch_tpu_torch import runtime as rt
     from tuch_tpu_torch.data.dataset import TuchDataset, synthetic_db
     from tuch_tpu_torch.eval.evaluate import run_evaluation
+    from tuch_tpu_torch.parallel import mesh as pmesh
+    from tuch_tpu_torch.parallel.multihost import \
+        maybe_initialize_distributed
 
-    cfg.check_ported(args)
+    maybe_initialize_distributed(args.device)
+    mesh = None
+    if cfg.mesh_wanted(args):
+        mesh = pmesh.make_mesh(dp=args.mesh_dp, cp=1, device=args.device)
     device = resolve_device(args.device)
     runtime = rt.build_runtime(
         device=device, synthetic=args.synthetic or None,
@@ -81,7 +90,7 @@ def run(args):
         runtime.hmr, dataset, args.dataset, runtime.smpl, smpl_m, smpl_f,
         j_reg, batch_size=args.batch_size, cnc_arr=cnc,
         result_file=args.result_file, log_freq=args.log_freq,
-        num_workers=args.num_workers, shuffle=args.shuffle)
+        num_workers=args.num_workers, shuffle=args.shuffle, mesh=mesh)
 
 
 def main(argv=None):
@@ -100,8 +109,8 @@ def main(argv=None):
                    help='accepted for reference compatibility; unused by '
                         'the reference too (eval.py:56)')
     p.add_argument('--mesh_dp', type=int, default=1,
-                   help='data-parallel devices: not ported (above 1 '
-                        'raises)')
+                   help='data-parallel ranks, one process each (torchrun '
+                        '--nproc_per_node N)')
     p.add_argument('--synthetic', action='store_true')
     p.add_argument('--synthetic_num_verts', type=int, default=0,
                    help='--synthetic body size override (0 = full)')
@@ -119,6 +128,9 @@ def main(argv=None):
                    help="torch device (default cuda; 'cpu' to run there)")
     args = p.parse_args(argv)
     result = run(args)
+    from tuch_tpu_torch.parallel.multihost import world
+    if world()[0]:
+        return result
     print('*** Final Results ***')
     for k, v in result.items():
         print(f'  {k}: {v:.3f}' if isinstance(v, float) else f'  {k}: {v}')

@@ -11,8 +11,13 @@ synthetic database on the synthetic body.
   python -m tuch_tpu_torch.cli.fit_eft --synthetic --device cpu \\
       --synthetic_num_verts 170 --img_res 64 --cbs 2 --max_steps 3
 
---auto_shard (shards from the process index and count) needs parallel/,
-which is not ported yet: it raises.
+--auto_shard derives --sidx and --cbs from the process's rank and the
+world size (the shard of rank r is images [r * cbs, (r + 1) * cbs), cbs
+= ceil(len / world)); the processes come from torchrun and need no
+collective, so they may share a card:
+
+  torchrun --nproc_per_node 4 -m tuch_tpu_torch.cli.fit_eft --auto_shard
+  python -m tuch_tpu_torch.cli.fit_eft --merge out/eft/dsc_df_eft_train_*.npz
 """
 
 import argparse
@@ -50,33 +55,34 @@ def parse_args(argv=None):
     p.add_argument('--merge', nargs='*', default=None,
                    help='merge shard files instead of fitting')
     p.add_argument('--auto_shard', action='store_true',
-                   help='derive --sidx/--cbs from the process index and '
-                        'count (needs parallel/, not ported yet: raises)')
+                   help='derive --sidx/--cbs from the rank and world size '
+                        'of a torchrun launch (one shard a process)')
     p.add_argument('--device', default=None,
                    help="torch device (default CUDA; 'cpu' to run there)")
     return p.parse_args(argv)
-
-
-def check_ported(args):
-    """Raise for --auto_shard: its process group comes with parallel/
-    (ROADMAP, modules to port)."""
-    if args.auto_shard:
-        raise NotImplementedError(
-            '--auto_shard: the multi-process shard split needs parallel/, '
-            "which is not ported yet (ROADMAP's modules to port); give "
-            '--sidx and --cbs per process')
 
 
 def main(argv=None):
     """Fit (or merge) every dataset of --ds_names; returns the files
     written."""
     args = parse_args(argv)
-    check_ported(args)
+    import torch.distributed as dist
+    from tuch_tpu_torch.parallel import multihost
+    if args.auto_shard:
+        multihost.maybe_initialize_distributed(args.device)
+    try:
+        return _run(args)
+    finally:
+        if args.auto_shard and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _run(args):
     from tuch_tpu_torch import resolve_device
     from tuch_tpu_torch import runtime as rt
     from tuch_tpu_torch.data.dataset import TuchDataset, synthetic_db
     from tuch_tpu_torch.fitting.eft import EFTFitter, merge_shards
+    from tuch_tpu_torch.parallel import multihost
 
     dev = resolve_device(args.device)
     rt.deterministic(dev)
@@ -105,6 +111,10 @@ def main(argv=None):
                     args.merge, ds.data,
                     os.path.join(args.out_dir, f'{dsname}_eft_train.pt')))
                 continue
+            if args.auto_shard:
+                # process_shard's split, as the reference's (sidx, cbs)
+                args.sidx = multihost.world()[0]
+                args.cbs = multihost.shard_size(len(ds))
             fitter = EFTFitter(args, dsname, ds, runtime.hmr, runtime.smpl,
                                runtime.contact, out_dir=args.out_dir)
             written.append(fitter.fit())

@@ -13,6 +13,14 @@ synthetic database of max(4 * batch_size, 8) samples, seen as 'dsc_lsp' and
   python -m tuch_tpu_torch.cli.train --synthetic --device cpu \\
       --synthetic_num_verts 170 --img_res 64 --batch_size 2 \\
       --num_epochs 1 --run_smplify
+
+--mesh_dp and --mesh_cp run one process per rank of the mesh, launched by
+torchrun (the process group comes from its environment; NCCL when each
+rank has a card of its own, gloo when ranks share a card or run on the
+CPU):
+
+  torchrun --nproc_per_node 4 -m tuch_tpu_torch.cli.train --mesh_dp 2 \\
+      --mesh_cp 2 --run_smplify ...
 """
 
 import os
@@ -31,11 +39,14 @@ def build(options, runtime=None):
                                              project_db_keypoints,
                                              synthetic_db)
     from tuch_tpu_torch.data.mixed import MixedDataset
+    from tuch_tpu_torch.parallel.multihost import \
+        maybe_initialize_distributed
     from tuch_tpu_torch.train.module import TuchAssets
     from tuch_tpu_torch.train.trainer import Trainer
     from tuch_tpu_torch.viz.renderer import Renderer
 
-    cfg.check_ported(options)
+    maybe_initialize_distributed(options.device)
+    cfg.check_mesh(options)
     device = resolve_device(options.device)
     rt.deterministic(device)
     if runtime is None:
@@ -86,9 +97,12 @@ def run(options, runtime=None):
 
 
 def main(argv=None):
+    import torch.distributed as dist
     from tuch_tpu_torch import config as cfg
     trainer = run(cfg.parse_config(cfg.TrainConfig, argv))
     trainer.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == '__main__':

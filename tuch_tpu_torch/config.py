@@ -106,8 +106,8 @@ class TrainConfig:
     """The flags of cli/train, with the JAX package's TrainConfig names and
     defaults (the reference's TrainOptions), plus --device.
 
-    mesh_dp and mesh_cp name the JAX package's device mesh; the port runs
-    on one device, and a value above 1 raises (check_ported)."""
+    mesh_dp and mesh_cp are the JAX package's device mesh: one process per
+    rank (torchrun --nproc_per_node dp*cp), parallel/mesh.py."""
     name: str = 'tuch'
     time_to_run: float = float('inf')
     resume: bool = False
@@ -222,20 +222,32 @@ class TrainConfig:
         self.checkpoint_dir = os.path.join(self.log_dir, 'checkpoints')
         os.makedirs(self.summary_dir, exist_ok=True)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
-        with open(os.path.join(self.log_dir, 'config.json'), 'w') as f:
+        # the ranks of a mesh all write it: each whole, by rename
+        path = os.path.join(self.log_dir, 'config.json')
+        tmp = f'{path}.{os.getpid()}.tmp'
+        with open(tmp, 'w') as f:
             json.dump(dataclasses.asdict(self), f, indent=4, default=str)
+        os.replace(tmp, path)
         return self
 
 
-def check_ported(options):
-    """Raise for a device mesh of more than one device (--mesh_dp,
-    --mesh_cp): parallel/ is not ported yet (ROADMAP, modules to port)."""
-    for name in ('mesh_dp', 'mesh_cp'):
-        if getattr(options, name, 0) > 1:
-            raise NotImplementedError(
-                f'--{name} {getattr(options, name)}: the device mesh is not '
-                'ported yet (parallel/ in ROADMAP\'s modules to port); the '
-                'port runs on one device')
+def mesh_wanted(options) -> bool:
+    """Whether a run builds a (dp, cp) mesh: --mesh_dp or --mesh_cp above
+    1 (the JAX package's rule), or a world of several ranks."""
+    from tuch_tpu_torch.parallel.multihost import world
+    return (getattr(options, 'mesh_cp', 1) > 1
+            or getattr(options, 'mesh_dp', 0) > 1 or world()[1] > 1)
+
+
+def check_mesh(options):
+    """Raise unless the mesh that --mesh_dp and --mesh_cp ask for fits the
+    world size (one process per rank, e.g. torchrun --nproc_per_node
+    dp*cp); call it after parallel/multihost.maybe_initialize_distributed."""
+    if mesh_wanted(options):
+        from tuch_tpu_torch.parallel.mesh import mesh_dims
+        from tuch_tpu_torch.parallel.multihost import world
+        mesh_dims(getattr(options, 'mesh_dp', 0),
+                  getattr(options, 'mesh_cp', 1), world()[1])
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls):

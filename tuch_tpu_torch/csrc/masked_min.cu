@@ -45,6 +45,13 @@
 //     is split over the grid; each split writes (d2, index) as one 64-bit
 //     key (d2's bits, >= 0, above the index) and a second kernel takes the
 //     min over splits: lexicographic, exact in any order, no atomics.
+//
+// The range entry (tuch_masked_min_range) searches only the vertices
+// [m_begin, m_end) and leaves the merged key undecoded, so that ranks that
+// split the searched axis among them (parallel/contact_parallel.py) merge
+// their keys with one integer MIN: the least d2, then the lowest index, as
+// the JAX package's two pmins. Its splits merge into the (B, V) keys with a
+// 64-bit atomicMin, which is exact in any order, so it needs no scratch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,11 +80,12 @@ __device__ __forceinline__ uint32_t mask_word(const uint32_t* __restrict__ row,
   return row[w];
 }
 
-// The first m in [mb, mb + JU) whose d2 to (x, y, z) is `best`, by the
-// same arithmetic as the search, so the same bits; 0 if best is +inf.
+// The first m in [mb, mb + JU) below m_hi whose d2 to (x, y, z) is
+// `best`, by the same arithmetic as the search, so the same bits; 0 if
+// best is +inf.
 __device__ __forceinline__ int first_at(const float* __restrict__ vb,
                                         const uint32_t* __restrict__ row,
-                                        int mb, int V, float x, float y,
+                                        int mb, int m_hi, float x, float y,
                                         float z, float best) {
   if (!(best < INF)) return 0;
   const uint32_t word = mask_word(row, mb >> 5) >> (mb & 31);
@@ -85,7 +93,7 @@ __device__ __forceinline__ int first_at(const float* __restrict__ vb,
 #pragma unroll 1
   for (int j = JU - 1; j >= 0; --j) {  // downward: the lowest equal m wins
     const int m = mb + j;
-    if (m >= V) continue;
+    if (m >= m_hi) continue;
     const float* v = vb + (int64_t)m * 3;
     const float d2 = sq_dist(__fsub_rn(x, v[0]), __fsub_rn(y, v[1]),
                              __fsub_rn(z, v[2]),
@@ -95,11 +103,14 @@ __device__ __forceinline__ int first_at(const float* __restrict__ vb,
   return a;
 }
 
+// MERGE false: split s writes its keys into keys[b][s][q]; MERGE true: it
+// takes the atomic min with keys[b][q], which starts at EMPTY_KEY.
+template <bool MERGE>
 __global__ void __launch_bounds__(T)
     masked_min_kernel(const float* __restrict__ verts,
                       const uint32_t* __restrict__ bits,
                       unsigned long long* __restrict__ keys, int B, int V,
-                      int W, int chunk) {
+                      int W, int chunk, int m_begin, int m_end) {
   __shared__ float4 pts[G][TM];
   const int s = blockIdx.y;
   const int splits = gridDim.y;
@@ -128,8 +139,8 @@ __global__ void __launch_bounds__(T)
     }
   }
 
-  const int m_lo = s * chunk;
-  const int m_hi = min(V, m_lo + chunk);
+  const int m_lo = m_begin + s * chunk;
+  const int m_hi = min(m_end, m_lo + chunk);
   for (int m0 = m_lo; m0 < m_hi; m0 += TM) {
     const int n = min(TM, m_hi - m0);
     __syncthreads();  // the previous tile has been consumed
@@ -144,7 +155,8 @@ __global__ void __launch_bounds__(T)
       pts[g][j] = p;
     }
     __syncthreads();
-    // m0 is a multiple of 32: whole words; bits past V are 0 (banned)
+    // m0 is a multiple of 32: whole words; m_hi is V (bits past V are 0,
+    // banned) or a multiple of 32
     const int nw = (n + 31) >> 5;
     for (int w = 0; w < nw; ++w) {
       uint32_t mw[R];
@@ -196,11 +208,15 @@ __global__ void __launch_bounds__(T)
     for (int g = 0; g < G; ++g) {
       if (q < V && b0 + g < B) {
         const int a = first_at(verts + (int64_t)(b0 + g) * V * 3, row[k],
-                               step[g][k], V, qx[g][k], qy[g][k], qz[g][k],
-                               best[g][k]);
-        keys[((int64_t)(b0 + g) * splits + s) * V + q] =
+                               step[g][k], m_hi, qx[g][k], qy[g][k],
+                               qz[g][k], best[g][k]);
+        const unsigned long long key =
             ((unsigned long long)__float_as_uint(best[g][k]) << 32) |
             (unsigned)a;
+        if (MERGE)
+          atomicMin(keys + (int64_t)(b0 + g) * V + q, key);
+        else
+          keys[((int64_t)(b0 + g) * splits + s) * V + q] = key;
       }
     }
   }
@@ -221,6 +237,12 @@ __global__ void masked_min_finish_kernel(
   }
   d2[t] = __uint_as_float((unsigned)(best >> 32));
   idx[t] = (int)(best & 0xffffffffull);
+}
+
+__global__ void fill_keys_kernel(unsigned long long* __restrict__ keys,
+                                 int64_t total) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < total) keys[t] = EMPTY_KEY;
 }
 
 }  // namespace
@@ -248,15 +270,44 @@ extern "C" int tuch_masked_min(const void* verts, const void* bits,
   const int splits = (V + chunk - 1) / chunk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((V + QB - 1) / QB, splits, (B + G - 1) / G);
-  masked_min_kernel<<<grid, T, 0, s>>>(
+  masked_min_kernel<false><<<grid, T, 0, s>>>(
       static_cast<const float*>(verts), static_cast<const uint32_t*>(bits),
-      static_cast<unsigned long long*>(keys), B, V, W, chunk);
+      static_cast<unsigned long long*>(keys), B, V, W, chunk, 0, V);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t total = (int64_t)B * V;
   masked_min_finish_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       static_cast<const unsigned long long*>(keys), static_cast<float*>(d2),
       static_cast<int*>(idx), V, splits, total);
+  return (int)cudaGetLastError();
+}
+
+// The searched range [m_begin, m_end) only, merged and not decoded:
+// keys (B, V) 64-bit words, device memory the call fills, each d2's bits
+// above its index, EMPTY_KEY (+inf, index 0) where the range allows
+// nothing. m_begin a multiple of 32 (whole mask words) unless the range is
+// empty, m_end a multiple of 32 or V; chunk: searched vertices per split, a multiple of TM.
+// stream: a cudaStream_t. Allocates nothing and does not synchronise.
+// Returns the cudaError_t of the launches.
+extern "C" int tuch_masked_min_range(const void* verts, const void* bits,
+                                     void* keys, int B, int V, int W,
+                                     int chunk, int m_begin, int m_end,
+                                     void* stream) {
+  if (B <= 0 || V <= 0 || W != (V + 31) / 32 || chunk <= 0 || chunk % TM ||
+      m_begin < 0 || m_begin > m_end || m_end > V ||
+      (m_begin % 32 && m_begin != m_end) || (m_end % 32 && m_end != V))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* k = static_cast<unsigned long long*>(keys);
+  const int64_t total = (int64_t)B * V;
+  fill_keys_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(k, total);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || m_end == m_begin) return (int)err;
+  const int splits = (m_end - m_begin + chunk - 1) / chunk;
+  const dim3 grid((V + QB - 1) / QB, splits, (B + G - 1) / G);
+  masked_min_kernel<true><<<grid, T, 0, s>>>(
+      static_cast<const float*>(verts), static_cast<const uint32_t*>(bits),
+      k, B, V, W, chunk, m_begin, m_end);
   return (int)cudaGetLastError();
 }
 

@@ -284,6 +284,10 @@ def synthetic_db(num_samples: int, num_contact_classes: int = 12,
         os.makedirs(img_dir, exist_ok=True)
         for i in range(num_samples):
             arr = rng.randint(0, 255, (img_size, img_size, 3), np.uint8)
-            Image.fromarray(arr).save(os.path.join(img_dir,
-                                                   db['imgname'][i]))
+            # the ranks of a mesh write the same files: each whole, by
+            # rename, so that no rank reads another's half-written file
+            path = os.path.join(img_dir, db['imgname'][i])
+            tmp = f'{path}.{os.getpid()}.tmp'
+            Image.fromarray(arr).save(tmp, format='PNG')
+            os.replace(tmp, path)
     return db

@@ -5,6 +5,12 @@ batch the HMR's eval-mode forward, SMPL, the H36M regressor's joints
 aligned at the pelvis against the ground truth (gendered SMPL for 3DPW,
 the dataset's 3D joints for MPI-INF-3DHP), MPJPE and a batched Procrustes
 PA-MPJPE (utils/procrustes.py), all on the device.
+
+On a dp mesh (parallel/mesh.Mesh) every rank reads the same batches; a
+batch that divides over dp is split, each rank evaluates its slice and the
+per-image results are gathered onto every rank; a ragged batch runs whole
+on every rank (the JAX package runs it unsharded). Rank 0 prints and
+writes the result file.
 """
 
 import os
@@ -16,6 +22,7 @@ import torch
 from tuch_tpu_torch import constants
 from tuch_tpu_torch.data.loader import CheckpointLoader, LoaderState
 from tuch_tpu_torch.models.smpl import smpl_forward, smpl_forward_pose72
+from tuch_tpu_torch.parallel import mesh as pmesh
 from tuch_tpu_torch.utils.procrustes import mpjpe as mpjpe_fn
 from tuch_tpu_torch.utils.procrustes import reconstruction_error
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
@@ -94,12 +101,15 @@ def run_evaluation(hmr, dataset, dataset_name: str, smpl_neutral,
                    batch_size: int = 32,
                    cnc_arr: Optional[np.ndarray] = None,
                    result_file: Optional[str] = None, log_freq: int = 50,
-                   num_workers: int = 2, shuffle: bool = False
+                   num_workers: int = 2, shuffle: bool = False, mesh=None
                    ) -> Dict[str, float]:
     """The whole dataset (eval.py:90-215); the report of
     report_with_contact_subsets. result_file: out/<result_file>.npz in
     the reference's schema (pred_joints, pose as (N, 72) axis-angle,
-    betas, camera, mpjpe, recon_err), in dataset order (no shuffle)."""
+    betas, camera, mpjpe, recon_err), in dataset order (no shuffle).
+    mesh: a dp mesh of ranks that share the batches (module note)."""
+    main = mesh is None or mesh.rank == 0
+    dp = 1 if mesh is None else mesh.dp
     step = make_eval_step(hmr, smpl_neutral, smpl_male, smpl_female,
                           j_regressor_h36m, dataset_name)
     loader = CheckpointLoader(dataset, batch_size=batch_size,
@@ -116,7 +126,12 @@ def run_evaluation(hmr, dataset, dataset_name: str, smpl_neutral,
         joints = np.zeros((n, np.asarray(j_regressor_h36m).shape[0], 3))
     seen = 0
     for bi, batch in enumerate(loader.epoch_iter(LoaderState(0, 0, 0))):
-        m, p, rotmat, betas, cam, pred_j = step(batch)
+        if batch['img'].shape[0] % dp == 0:
+            out = step(pmesh.shard_batch(batch, mesh))
+            m, p, rotmat, betas, cam, pred_j = (pmesh.dp_gather(t, mesh)
+                                                for t in out)
+        else:
+            m, p, rotmat, betas, cam, pred_j = step(batch)
         bsz = min(batch['img'].shape[0], n - seen)
         mpjpe[seen:seen + bsz] = m.cpu().numpy()[:bsz]
         recon[seen:seen + bsz] = p.cpu().numpy()[:bsz]
@@ -127,7 +142,7 @@ def run_evaluation(hmr, dataset, dataset_name: str, smpl_neutral,
             cams[seen:seen + bsz] = cam.cpu().numpy()[:bsz]
             joints[seen:seen + bsz] = pred_j.cpu().numpy()[:bsz]
         seen += bsz
-        if bi % log_freq == log_freq - 1:
+        if bi % log_freq == log_freq - 1 and main:
             interim = report_with_contact_subsets(
                 mpjpe[:seen], recon[:seen],
                 cnc_arr[:seen] if cnc_arr is not None else None)
@@ -136,7 +151,7 @@ def run_evaluation(hmr, dataset, dataset_name: str, smpl_neutral,
                 if isinstance(v, float)), flush=True)
     result = report_with_contact_subsets(mpjpe[:seen], recon[:seen],
                                          cnc_arr)
-    if save:
+    if save and main:
         os.makedirs('out', exist_ok=True)
         np.savez(os.path.join('out', result_file), pred_joints=joints,
                  pose=poses, betas=betas_all, camera=cams, mpjpe=mpjpe,

@@ -1,10 +1,16 @@
 """SMPLify-DC: in-the-loop body fitting with discrete self-contact.
 
-Counterpart of tuch_tpu/fitting/smplify_dc.py (without its `mesh` option).
-Two stages of Adam steps over the whole batch at once: the camera (and
-betas when contact is on), then the body pose with the contact terms.
-Each stage is a Python loop of eager steps; only the stage's live
-parameters take gradients.
+Counterpart of tuch_tpu/fitting/smplify_dc.py. Two stages of Adam steps
+over the whole batch at once: the camera (and betas when contact is on),
+then the body pose with the contact terms. Each stage is a Python loop of
+eager steps; only the stage's live parameters take gradients.
+
+With a mesh (SMPLifyConfig.mesh, parallel/mesh.Mesh) the batch is this
+rank's dp slice. Every parameter of the fit belongs to one sample and the
+loss is a sum over samples, so a rank fits its slice alone; only the
+contact compaction couples the batch: it takes the first `capacity`
+active samples of the global batch, and each rank runs those in its
+slice. With cp > 1 the contact quadratics split over the cp ranks.
 
 Adam is written out as optax's `adam` computes it:
 m = (1 - b1) g + b1 m, v = (1 - b2) g² + b2 v, and the step
@@ -21,6 +27,7 @@ from tuch_tpu_torch.losses import smplify as L
 from tuch_tpu_torch.losses.prior import GMMPrior
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
+from tuch_tpu_torch.parallel import mesh as PM
 
 # Joints ignored during fitting (reference smplifydc.py:46-47).
 IGN_JOINT_NAMES = ('OP Neck', 'OP RHip', 'OP LHip', 'Right Hip', 'Left Hip')
@@ -44,6 +51,9 @@ class SMPLifyConfig(NamedTuple):
     # samples (0 = the full batch); overflow is reported in
     # SMPLifyResult.contact_truncated_frac
     contact_capacity: int = 0
+    # the (dp, cp) mesh of ranks (parallel/mesh.Mesh): dp slices the batch
+    # (the compaction stays global), cp > 1 splits the contact quadratics
+    mesh: Optional[object] = None
 
 
 class SMPLifyResult(NamedTuple):
@@ -130,7 +140,8 @@ def contact_stage(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
             prior, assets, gt_contact, ignore_idxs, has_discrete_contact,
             config.euclthres, focal_length=config.focal_length,
             contact_loss_weight=config.contact_loss_weight,
-            cached_neighbors=neighbors, compact_idx=compact_idx)
+            cached_neighbors=neighbors, compact_idx=compact_idx,
+            mesh=config.mesh)
 
     @torch.no_grad()
     def neighbors(p, prev_exterior=None, candidate_k=0):
@@ -139,7 +150,8 @@ def contact_stage(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
         if compact_idx is not None:
             verts = verts[compact_idx]
         return L.contact_neighbors(verts, assets, candidate_k=candidate_k,
-                                   prev_exterior=prev_exterior)
+                                   prev_exterior=prev_exterior,
+                                   mesh=config.mesh)
 
     return ContactStage(loss, neighbors)
 
@@ -201,11 +213,14 @@ def smplify_dc(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
     if config.use_contact:
         K = max(1, config.exterior_refresh_every)
         B = body_pose0.shape[0]
+        mesh = config.mesh
+        Bg = B * (1 if mesh is None else mesh.dp)       # the global batch
         cap = int(config.contact_capacity)
         compact_idx = None
-        if 0 < cap < B:
-            active = ~ignore_idxs
-            compact_idx = L.compact_take(active, cap)
+        if 0 < cap < Bg:
+            active = PM.dp_gather(~ignore_idxs, mesh)
+            compact_idx = PM.local_compact(L.compact_take(active, cap),
+                                           mesh, B)
             trunc_frac = L.compact_overflow_frac(active, cap)
 
         stage = contact_stage(smpl, prior, assets, betas1, cam_t,

@@ -1,8 +1,14 @@
 """Training losses of the HMR regressor: the SPIN terms and self-contact.
 
-Counterpart of tuch_tpu/losses/regressor.py (without its `mesh` option:
-the contact-parallel sharding comes with parallel/). Every term is batched
-and every "empty selection gives 0" is a mask.
+Counterpart of tuch_tpu/losses/regressor.py. Every term is batched and
+every "empty selection gives 0" is a mask.
+
+With a mesh (parallel/mesh.Mesh) the batch is this rank's dp slice, and
+each mean over the batch divides by the global batch's count (the count
+summed over dp, never a mean of local means), so the loss of a rank is its
+share of the global loss and the shares' gradients sum over dp to the
+global gradient. The contact loss's compaction picks from the global
+batch, and with cp > 1 its quadratics split over cp.
 
 The contact loss pulls every exterior vertex towards its nearest allowed
 vertex and pushes interior ones out (the in-loop fit's push_pull_terms
@@ -13,6 +19,7 @@ kernel 2 at Q = K, and their masked nearest HD point is a Gram-form
 product in full fp32 (ops/contact.masked_sq_dists_highest).
 """
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -24,6 +31,7 @@ from tuch_tpu_torch.losses.smplify import (ContactAssets, _top_k,
                                            zero_safe_norm)
 from tuch_tpu_torch.ops import contact as contact_ops
 from tuch_tpu_torch.ops import contact_kernels as CK
+from tuch_tpu_torch.parallel import mesh as PM
 from tuch_tpu_torch.utils.rotations import batch_rodrigues
 
 
@@ -37,16 +45,19 @@ class LossWeights(NamedTuple):
     gt_train_weight: float = 1.0
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of values[mask], 0 when the mask is empty."""
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Mean of values[mask], 0 when the mask is empty; under a dp mesh
+    this rank's share of the global batch's mean (its sum over the global
+    count)."""
     m = mask.to(values.dtype)
-    denom = m.sum()
+    denom = PM.dp_sum(m.sum(), mesh)
     return torch.where(denom > 0, (values * m).sum() / denom.clamp(min=1.0),
                        torch.zeros_like(denom))
 
 
 def keypoint_loss(pred_kp2d, gt_kp2d, openpose_weight, gt_weight,
-                  valid_fit):
+                  valid_fit, mesh=None):
     """Confidence-weighted 2D reprojection MSE: pred (B, 49, 2), gt
     (B, 49, 3) with confidence; per-sample mean, then the mean over
     valid_fit."""
@@ -55,10 +66,10 @@ def keypoint_loss(pred_kp2d, gt_kp2d, openpose_weight, gt_weight,
                    torch.full((24,), gt_weight)]).to(conf)
     conf = conf * w[None, :, None]
     per_sample = (conf * (pred_kp2d - gt_kp2d[..., :2]) ** 2).mean((1, 2))
-    return _masked_mean(per_sample, valid_fit)
+    return _masked_mean(per_sample, valid_fit, mesh)
 
 
-def keypoint_3d_loss(pred_joints, gt_joints, has_pose_3d):
+def keypoint_3d_loss(pred_joints, gt_joints, has_pose_3d, mesh=None):
     """Pelvis-aligned 3D keypoint MSE over the 24 ground-truth joints of
     pred_joints (B, 49, 3) (25:) against gt_joints (B, 24, 4)."""
     pred = pred_joints[:, 25:, :]
@@ -67,28 +78,32 @@ def keypoint_3d_loss(pred_joints, gt_joints, has_pose_3d):
     gt = gt - ((gt[:, 2, :] + gt[:, 3, :]) / 2)[:, None, :]
     pred = pred - ((pred[:, 2, :] + pred[:, 3, :]) / 2)[:, None, :]
     per_sample = (conf * (pred - gt) ** 2).mean((1, 2))
-    return _masked_mean(per_sample, has_pose_3d)
+    return _masked_mean(per_sample, has_pose_3d, mesh)
 
 
-def shape_loss(pred_vertices, gt_vertices, has_smpl):
+def shape_loss(pred_vertices, gt_vertices, has_smpl, mesh=None):
     """Per-vertex L1 over samples with SMPL annotations."""
     per_sample = (pred_vertices - gt_vertices).abs().mean((1, 2))
-    return _masked_mean(per_sample, has_smpl)
+    return _masked_mean(per_sample, has_smpl, mesh)
 
 
 def smpl_param_loss(pred_rotmat, pred_betas, opt_pose, opt_betas,
-                    valid_pose, valid_shape):
+                    valid_pose, valid_shape, mesh=None):
     """Rotation-matrix MSE and betas MSE over valid fits."""
     gt_rotmat = batch_rodrigues(opt_pose.reshape(-1, 24, 3))
     pose_per_sample = ((pred_rotmat - gt_rotmat) ** 2).mean((1, 2, 3))
     betas_per_sample = ((pred_betas - opt_betas) ** 2).mean(1)
-    return (_masked_mean(pose_per_sample, valid_pose),
-            _masked_mean(betas_per_sample, valid_shape))
+    return (_masked_mean(pose_per_sample, valid_pose, mesh),
+            _masked_mean(betas_per_sample, valid_shape, mesh))
 
 
-def camera_depth_loss(pred_camera):
-    """Penalise a negative or small weak-perspective scale."""
-    return torch.mean(torch.exp(-pred_camera[:, 0] * 10) ** 2)
+def camera_depth_loss(pred_camera, mesh=None):
+    """Penalise a negative or small weak-perspective scale (the mean over
+    the global batch)."""
+    pen = torch.exp(-pred_camera[:, 0] * 10) ** 2
+    if mesh is None or mesh.dp == 1:
+        return torch.mean(pen)
+    return pen.sum() / (pen.shape[0] * mesh.dp)
 
 
 class HDAssets(NamedTuple):
@@ -141,7 +156,7 @@ def _rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """values (B, N, D) rows by idx (B, ...) -> (B, ..., D), with the
     plain scatter-add gradient."""
     B, D = values.shape[0], values.shape[-1]
-    flat = idx.reshape(B, -1, 1).expand(-1, -1, D)
+    flat = idx.reshape(B, math.prod(idx.shape[1:]), 1).expand(-1, -1, D)
     return torch.gather(values, 1, flat).reshape(*idx.shape, D)
 
 
@@ -196,7 +211,7 @@ def hd_offset_points(hd_pts: torch.Tensor, verts: torch.Tensor,
 def contact_loss(verts: torch.Tensor, assets: ContactAssets,
                  valid_fit: torch.Tensor, euclthres: float,
                  hd: Optional[HDAssets] = None, hd_k: int = 1024,
-                 candidate_k: int = 0, capacity: int = 0):
+                 candidate_k: int = 0, capacity: int = 0, mesh=None):
     """The TUCH self-contact push/pull loss: (loss, aux).
 
     The loss is the mean over valid_fit samples of
@@ -209,23 +224,26 @@ def contact_loss(verts: torch.Tensor, assets: ContactAssets,
     winding number of each point moved 1 mm along its face's normal.
 
     capacity > 0 runs the quadratic machinery for at most `capacity`
-    valid samples (the same loss while capacity >= #valid; the overflow is
-    aux['contact_valid_truncated_frac']).
+    valid samples of the global batch (the same loss while capacity >=
+    #valid; the overflow is aux['contact_valid_truncated_frac']); under dp
+    each rank runs those in its slice.
     """
     B = verts.shape[0]
+    Bg = B * (1 if mesh is None else mesh.dp)
     aux = {}
-    if 0 < capacity < B:
+    if 0 < capacity < Bg:
         vmask = valid_fit.bool()
-        idx = compact_take(vmask, capacity)
+        gmask = PM.dp_gather(vmask, mesh)
+        idx = PM.local_compact(compact_take(gmask, capacity), mesh, B)
         aux['contact_valid_truncated_frac'] = compact_overflow_frac(
-            vmask, capacity)
+            gmask, capacity)
         verts = verts[idx]
         valid_fit = vmask[idx]
 
     exterior, v2v_min, in_contact = self_contact_terms(
-        verts, assets, euclthres, candidate_k=candidate_k)
+        verts, assets, euclthres, candidate_k=candidate_k, mesh=mesh)
     if hd is None:
-        return (_masked_mean(_push_pull(v2v_min, exterior), valid_fit),
+        return (_masked_mean(_push_pull(v2v_min, exterior), valid_fit, mesh),
                 {'hd_truncated_frac': verts.new_zeros(()), **aux})
 
     top_idx, sel, trunc = hd_candidates(hd, exterior, v2v_min, in_contact,
@@ -250,8 +268,9 @@ def contact_loss(verts: torch.Tensor, assets: ContactAssets,
     d_hd = zero_safe_norm(hd_pts - _rows(hd_pts, argmin))
     w_valid = (sel & has_neighbor).to(verts.dtype)
     per_sample = _push_pull(d_hd, hd_ext, w_valid)
-    return (_masked_mean(per_sample, valid_fit),
-            {'hd_truncated_frac': _masked_mean(trunc, valid_fit), **aux})
+    return (_masked_mean(per_sample, valid_fit, mesh),
+            {'hd_truncated_frac': _masked_mean(trunc, valid_fit, mesh),
+             **aux})
 
 
 def regressor_loss(weights: LossWeights,
@@ -263,23 +282,28 @@ def regressor_loss(weights: LossWeights,
                    contact_assets: Optional[ContactAssets] = None,
                    euclthres: float = 0.02,
                    hd: Optional[HDAssets] = None, hd_k: int = 1024,
-                   candidate_k: int = 0, contact_capacity: int = 0):
-    """The full training loss: (total, dict of the terms)."""
+                   candidate_k: int = 0, contact_capacity: int = 0,
+                   mesh=None):
+    """The full training loss: (total, dict of the terms). Under a dp
+    mesh, total is this rank's share (its gradient summed over dp is the
+    global gradient) and the dict holds each term's global value."""
     loss_contact = pred_vertices.new_zeros(())
     contact_aux = {}
     if weights.contact > 0 and contact_assets is not None:
         loss_contact, contact_aux = contact_loss(
             pred_vertices, contact_assets, valid_fit, euclthres, hd=hd,
-            hd_k=hd_k, candidate_k=candidate_k, capacity=contact_capacity)
+            hd_k=hd_k, candidate_k=candidate_k, capacity=contact_capacity,
+            mesh=mesh)
 
     l_pose, l_betas = smpl_param_loss(pred_rotmat, pred_betas, opt_pose,
-                                      opt_betas, valid_fit, valid_fit_shape)
+                                      opt_betas, valid_fit, valid_fit_shape,
+                                      mesh)
     l_kp2d = keypoint_loss(pred_keypoints_2d, gt_keypoints_2d,
                            weights.openpose_train_weight,
-                           weights.gt_train_weight, valid_fit)
-    l_kp3d = keypoint_3d_loss(pred_joints, gt_joints, has_pose_3d)
-    l_shape = shape_loss(pred_vertices, opt_vertices, valid_fit)
-    l_cam = camera_depth_loss(pred_camera)
+                           weights.gt_train_weight, valid_fit, mesh)
+    l_kp3d = keypoint_3d_loss(pred_joints, gt_joints, has_pose_3d, mesh)
+    l_shape = shape_loss(pred_vertices, opt_vertices, valid_fit, mesh)
+    l_cam = camera_depth_loss(pred_camera, mesh)
 
     total = (weights.shape * l_shape
              + weights.keypoint * l_kp2d
@@ -288,7 +312,7 @@ def regressor_loss(weights: LossWeights,
              + weights.beta * l_betas
              + l_cam
              + weights.contact * loss_contact)
-    return total, {
+    terms = {
         'loss_shape': l_shape,
         'loss_keypoints': l_kp2d,
         'loss_keypoints_3d': l_kp3d,
@@ -298,3 +322,11 @@ def regressor_loss(weights: LossWeights,
         'loss_contact': loss_contact,
         **contact_aux,
     }
+    if mesh is not None and mesh.dp > 1:
+        # every term but the compaction's overflow (global already) is a
+        # share: one all_reduce of them all
+        shares = [k for k in terms if k != 'contact_valid_truncated_frac']
+        summed = PM.dp_sum(torch.stack([terms[k].detach() for k in shares]),
+                           mesh)
+        terms.update(zip(shares, summed.unbind()))
+    return total, terms

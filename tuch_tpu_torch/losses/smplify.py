@@ -1,9 +1,10 @@
 """Fitting losses for SMPLify-DC: reprojection, priors and contact terms.
 
-Counterpart of tuch_tpu/losses/smplify.py (without its `mesh` option: the
-contact-parallel sharding comes with parallel/). Every term is batched; the
+Counterpart of tuch_tpu/losses/smplify.py. Every term is batched; the
 per-sample enablement of the reference (ignore_idxs, has_discrete_contact)
-is masking.
+is masking. With a mesh (parallel/mesh.Mesh) of cp > 1 the two quadratic
+searches split their triangle and searched axes over cp
+(parallel/contact_parallel.py); the batch is this rank's slice.
 
 The contact terms split in two halves. contact_neighbors, without
 gradient, runs the winding in/out test (kernel 2, twice with segments) and
@@ -23,6 +24,7 @@ from tuch_tpu_torch.ops.gather import gather_rows
 from tuch_tpu_torch.ops.segments import (SegmentTables,
                                          forgive_segment_interiors,
                                          to_device)
+from tuch_tpu_torch.parallel import contact_parallel as CPAR
 from tuch_tpu_torch.utils.projection import perspective_projection
 
 _ANGLE_IDX = (52, 55, 9, 12)   # knees and elbows in the 69-dim body pose
@@ -140,7 +142,7 @@ def _top_k(key: torch.Tensor, k: int) -> torch.Tensor:
 
 @torch.no_grad()
 def contact_neighbors(verts: torch.Tensor, assets: ContactAssets,
-                      candidate_k: int = 0, prev_exterior=None):
+                      candidate_k: int = 0, prev_exterior=None, mesh=None):
     """The half without gradient: winding in/out flags and the masked
     nearest vertex, (exterior (B, V) bool, argmin (B, V) int32).
 
@@ -150,19 +152,37 @@ def contact_neighbors(verts: torch.Tensor, assets: ContactAssets,
     vertices keep their previous flag when prev_exterior is given (sticky),
     else read exterior. In-the-loop fitters seed with one exact pass (see
     fitting/smplify_dc.py) and thread prev_exterior through refreshes.
+
+    mesh: with cp > 1 both routes split their quadratic axes over cp
+    (parallel/contact_parallel.py); every rank of the cp group passes the
+    same verts. An empty batch returns empty flags, with no collective.
     """
     vd = verts.detach()
     B, V, _ = vd.shape
     K = max(0, int(candidate_k))
-    min_d2, argmin = CK.masked_min_dist(vd, assets.geomask,
-                                        assets.geomask_bits)
-    if K and K < V:
-        cand = _top_k(_candidate_key(min_d2, prev_exterior), K)   # (B, K)
-        qpts = gather_rows(vd, cand.int())
-        wn_c = CK.winding_numbers_faces(qpts, vd, assets.faces)
-        exterior = _candidate_flags((B, V), prev_exterior, cand, wn_c)
+    if B == 0:
+        return (torch.ones((0, V), dtype=torch.bool, device=vd.device),
+                torch.zeros((0, V), dtype=torch.int32, device=vd.device))
+    cp = mesh is not None and mesh.cp > 1
+    if cp and not (K and K < V):
+        wn, argmin = CPAR.contact_neighbors_cp(
+            vd, assets.faces, assets.geomask, assets.geomask_bits, mesh)
+        exterior = wn <= 0.99
     else:
-        exterior = CK.winding_numbers_faces(vd, vd, assets.faces) <= 0.99
+        if cp:
+            min_d2, argmin = CPAR.masked_min_cp(
+                vd, assets.geomask, assets.geomask_bits, mesh)
+        else:
+            min_d2, argmin = CK.masked_min_dist(vd, assets.geomask,
+                                                assets.geomask_bits)
+        if K and K < V:
+            cand = _top_k(_candidate_key(min_d2, prev_exterior), K)
+            qpts = gather_rows(vd, cand.int())                # (B, K, 3)
+            wn_c = CPAR.winding_numbers_cp(qpts, vd, assets.faces, mesh) \
+                if cp else CK.winding_numbers_faces(qpts, vd, assets.faces)
+            exterior = _candidate_flags((B, V), prev_exterior, cand, wn_c)
+        else:
+            exterior = CK.winding_numbers_faces(vd, vd, assets.faces) <= 0.99
     if assets.segment_tables is not None:
         exterior = forgive_segment_interiors(assets.segment_tables, vd,
                                              exterior)
@@ -186,12 +206,12 @@ def contact_distances(verts: torch.Tensor, argmin: torch.Tensor
 
 
 def self_contact_terms(verts: torch.Tensor, assets: ContactAssets,
-                       euclthres: float, candidate_k: int = 0):
+                       euclthres: float, candidate_k: int = 0, mesh=None):
     """Both halves at once: (exterior (B, V) bool, v2v_min (B, V) with
     gradient, in_contact (B, V) bool), in_contact the vertices whose
     nearest allowed vertex lies within euclthres."""
     exterior, argmin = contact_neighbors(verts, assets,
-                                         candidate_k=candidate_k)
+                                         candidate_k=candidate_k, mesh=mesh)
     v2v_min = contact_distances(verts, argmin)
     return exterior, v2v_min, v2v_min.detach() < euclthres
 
@@ -229,7 +249,7 @@ def contact_fitting_loss(body_pose, global_orient, betas, model_joints,
                          focal_length=5000.0, sigma=100.0,
                          pose_prior_weight=1.0, contact_loss_weight=1000.0,
                          cached_neighbors=None, candidate_k=0,
-                         compact_idx=None):
+                         compact_idx=None, mesh=None):
     """Stage-2 loss with self-contact, a scalar:
 
       sum_b [reproj_b + pose_prior_b + 10 contact_b + w r2r_b]
@@ -237,7 +257,10 @@ def contact_fitting_loss(body_pose, global_orient, betas, model_joints,
     with contact_b and r2r_b masked to ~ignore_idxs and r2r_b to
     has_discrete_contact. compact_idx (C,) restricts the quadratic terms to
     a sub-batch (compact_take); cached_neighbors, when given, are then
-    (C, V)-shaped.
+    (C, V)-shaped. mesh: the contact neighbours' cp split
+    (contact_neighbors); under dp the batch is this rank's slice, its loss
+    this slice's share of the sum, and compact_idx this rank's part of the
+    global compaction (parallel/mesh.local_compact), possibly empty.
     """
     reproj = reprojection_term(model_joints, camera_t, camera_center,
                                joints_2d, joints_conf, focal_length,
@@ -248,7 +271,8 @@ def contact_fitting_loss(body_pose, global_orient, betas, model_joints,
     cverts = verts if compact_idx is None else verts[compact_idx]
     if cached_neighbors is None:
         exterior, argmin = contact_neighbors(cverts, assets,
-                                             candidate_k=candidate_k)
+                                             candidate_k=candidate_k,
+                                             mesh=mesh)
     else:
         exterior, argmin = cached_neighbors
     v2v_min = contact_distances(cverts, argmin)
@@ -261,10 +285,14 @@ def contact_fitting_loss(body_pose, global_orient, betas, model_joints,
     # region-to-region term, geodesically masked like the reference's
     # SMPLify r2r term (distant pairs only), on the same sub-batch
     cgt = gt_contact if compact_idx is None else gt_contact[compact_idx]
-    pair_min = contact_ops.region_pair_min_dists(
-        cverts, assets.region_idx_a, assets.region_idx_b,
-        assets.region_mask_a, assets.region_mask_b, geomask=assets.geomask)
-    r2r_b = (pair_min * cgt).sum(-1)
+    if cverts.shape[0]:
+        pair_min = contact_ops.region_pair_min_dists(
+            cverts, assets.region_idx_a, assets.region_idx_b,
+            assets.region_mask_a, assets.region_mask_b,
+            geomask=assets.geomask)
+        r2r_b = (pair_min * cgt).sum(-1)
+    else:                        # this rank holds none of the compaction
+        r2r_b = cverts.new_zeros(0)
     if compact_idx is not None:
         r2r_b = r2r_b.new_zeros(B).index_copy(0, compact_idx, r2r_b)
 

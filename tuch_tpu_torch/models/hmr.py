@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tuch_tpu_torch.models import vit as vit_mod
+from tuch_tpu_torch.parallel.mesh import all_reduce_
 from tuch_tpu_torch.utils.rotations import rot6d_to_rotmat
 
 NPOSE = 24 * 6
@@ -66,6 +67,47 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm on (N, C, H, W) over the process group `group`,
+    in float32 at least: the global batch's mean and biased variance in
+    two passes, mean((x - mean)²), each per-channel sum accumulated in
+    float64 and all-reduced over the group; y = x̂ w + b with x̂ = (x -
+    mean) rsqrt(var + eps). The backward is BatchNorm's, dx = (g - mean(g)
+    - x̂ mean(g x̂)) rsqrt(var + eps) w, with the two means over the
+    group's batch (their sums in float64, one all_reduce); dw and db are
+    this rank's sums, which the step's gradient all_reduce adds. Returns y
+    and the global batch's mean and variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = xf.numel() // xf.shape[1] * torch.distributed.get_world_size(
+            group)
+        mean = all_reduce_(xf.sum((0, 2, 3), dtype=torch.float64), group) / n
+        d = xf - mean.to(xf.dtype)[:, None, None]
+        var = all_reduce_((d * d).sum((0, 2, 3), dtype=torch.float64),
+                          group) / n
+        invstd = torch.rsqrt(var + eps).to(xf.dtype)
+        xhat = d * invstd[:, None, None]
+        ctx.save_for_backward(xhat, invstd, weight)
+        ctx.group, ctx.n, ctx.in_dtype = group, n, x.dtype
+        y = xhat * weight[:, None, None] + bias[:, None, None]
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        xhat, invstd, weight = ctx.saved_tensors
+        g = gy.to(xhat.dtype)
+        sums = torch.stack([g.sum((0, 2, 3), dtype=torch.float64),
+                            (g * xhat).sum((0, 2, 3), dtype=torch.float64)])
+        dbias, dweight = sums.to(weight.dtype)
+        means = (all_reduce_(sums.clone(), ctx.group) / ctx.n).to(g.dtype)
+        dx = (g - means[0][:, None, None] - xhat * means[1][:, None, None]) \
+            * (invstd * weight)[:, None, None]
+        return dx.to(ctx.in_dtype), dweight, dbias, None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (eps 1e-5) whose train() mode is Flax's BatchNorm.
 
@@ -73,24 +115,54 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the batch's statistics and updates the running ones as Flax does:
     with the biased batch variance E[x²] - E[x]² (floored at 0), where
     nn.BatchNorm2d takes the unbiased one, and ra = 0.9 ra + 0.1 stat.
+
+    With a sync_group (sync_batchnorm: the dp ranks of a mesh, each with a
+    slice of the batch) the statistics are those of the global batch, as
+    the JAX package's jit over a dp-sharded batch computes them
+    (_SyncBatchNorm, SyncBatchNorm's scheme in Flax's biased form). One
+    process keeps torch's own kernel (F.batch_norm), unchanged: a hand
+    formula there moved EFT's float32 three-step loss, which is chaotic at
+    B=1, by up to 3.7e-4 between the card and the CPU, past the 1e-4 at which
+    chip_smoke.py holds the two. In float64 the two paths agree to
+    rounding (tests/test_torch_port_parallel_train.py, bn_control).
     """
+
+    sync_group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5)
 
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            for buf, stat in ((self.running_mean, mean),
+                              (self.running_var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync_group is not None:
+            y, mean, var = _SyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.sync_group)
+            self._update_running(mean, var)
+            return y
         with torch.no_grad():
             # in float32 at least (a bfloat16 input), as Flax's BatchNorm
             xf = x.detach().to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0)
-            for buf, stat in ((self.running_mean, mean),
-                              (self.running_var, var)):
-                buf.copy_(BN_MOMENTUM * buf + (1.0 - BN_MOMENTUM) * stat)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias,
                             training=True, eps=self.eps)
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Let every BatchNorm2d of model take its train-mode statistics over
+    the process group `group` (None: its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return model
 
 
 def draw_dropout_masks(B: int, generator=None, device=None):

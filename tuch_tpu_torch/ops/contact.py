@@ -100,25 +100,28 @@ def winding_numbers_same_tris(points: torch.Tensor, vertices: torch.Tensor,
 
 
 def masked_min_dist(verts: torch.Tensor, geomask: torch.Tensor,
-                    block_m: int = 1024):
+                    block_m: int = 1024, m_begin: int = 0, m_end=None):
     """For each vertex, the least squared distance to a vertex the mask
     allows, and that vertex: the exact first minimum (lowest index).
 
     verts (B, V, 3); geomask (V, V) bool, allowed[query, searched].
     Returns (min_d2 (B, V) float, argmin (B, V) int32); a vertex whose
     every pair is banned gets inf and index 0. Streams over column blocks.
+    m_begin, m_end: search only the vertices [m_begin, m_end) (the whole
+    axis by default); each pair's d2 is the same in any range.
     """
     B, V, _ = verts.shape
+    m_end = V if m_end is None else m_end
     geomask = geomask.bool()
     qx, qy, qz = (verts[..., k][:, :, None] for k in range(3))  # (B, V, 1)
     best_d2 = verts.new_full((B, V), float('inf'))
     best_idx = torch.zeros((B, V), dtype=torch.int32, device=verts.device)
-    for m0 in range(0, V, block_m):
-        cols = verts[:, m0:m0 + block_m]                      # (B, m, 3)
+    for m0 in range(m_begin, m_end, block_m):
+        m1 = min(m0 + block_m, m_end)
+        cols = verts[:, m0:m1]                                # (B, m, 3)
         d2 = _sq_norm(*(q - cols[..., k][:, None, :]
                         for k, q in enumerate((qx, qy, qz))))  # (B, V, m)
-        d2 = torch.where(geomask[None, :, m0:m0 + block_m], d2,
-                         float('inf'))
+        d2 = torch.where(geomask[None, :, m0:m1], d2, float('inf'))
         blk_min, blk_arg = d2.min(dim=2)
         upd = blk_min < best_d2
         best_d2 = torch.where(upd, blk_min, best_d2)

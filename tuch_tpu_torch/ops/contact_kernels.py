@@ -173,6 +173,77 @@ def masked_min_dist_cuda(verts: torch.Tensor, mask: torch.Tensor,
     return d2, idx
 
 
+# A merged key of kernel 4's range entry: d2's float bits above the index;
+# +inf and index 0 where nothing is allowed (csrc/masked_min.cu EMPTY_KEY).
+EMPTY_KEY = 0x7f800000 << 32
+
+
+def encode_keys(d2: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(d2 (B, V) float32 >= 0, idx (B, V) int32) -> (B, V) int64 keys, as
+    the range entry writes them: d2 >= 0, so a key is a non-negative int64
+    and a signed MIN orders keys by d2, then by index."""
+    return (d2.contiguous().view(torch.int32).long() << 32) | idx.long()
+
+
+def decode_keys(keys: torch.Tensor):
+    """(B, V) int64 keys -> (min d2 (B, V) float32, argmin (B, V) int32)."""
+    d2 = (keys >> 32).to(torch.int32).view(torch.float32)
+    return d2, (keys & 0xffffffff).to(torch.int32)
+
+
+def masked_min_keys_ref(verts: torch.Tensor, mask: torch.Tensor,
+                        m_begin: int, m_end: int) -> torch.Tensor:
+    """Plain version of kernel 4's range entry: the first minimum over the
+    searched vertices [m_begin, m_end) as (B, V) int64 keys, EMPTY_KEY
+    where the range allows nothing. The MIN of the keys of ranges that
+    cover the axis decodes to masked_min_dist over the whole axis."""
+    d2, idx = contact.masked_min_dist(verts, mask, m_begin=m_begin,
+                                      m_end=m_end)
+    return encode_keys(d2, idx)
+
+
+def masked_min_keys_cuda(verts: torch.Tensor, mask: torch.Tensor,
+                         bits: torch.Tensor, m_begin: int, m_end: int
+                         ) -> torch.Tensor:
+    """Launch kernel 4's range entry: verts (B, V, 3), mask (V, V) uint8,
+    bits pack_mask_bits(mask) -> (B, V) int64 keys over the searched
+    vertices [m_begin, m_end); m_begin a multiple of 32 (or the range
+    empty), m_end a multiple of 32 or V."""
+    what = 'masked_min_keys_cuda'
+    _check_points(verts, 3, what, 'verts')
+    B, V, _ = verts.shape
+    W = -(-V // 32)
+    if mask.dtype != torch.uint8 or tuple(mask.shape) != (V, V) \
+            or bits is None or bits.dtype != torch.int32 \
+            or tuple(bits.shape) != (V, W) or not bits.is_contiguous() \
+            or bits.device != verts.device or mask.device != verts.device:
+        raise ValueError(f'{what}: mask must be uint8 ({V}, {V}) and bits '
+                         f'contiguous int32 ({V}, {W}) on {verts.device}')
+    if not (0 <= m_begin <= m_end <= V) \
+            or (m_begin % 32 and m_begin != m_end) \
+            or (m_end % 32 and m_end != V):
+        raise ValueError(f'{what}: range [{m_begin}, {m_end}) must lie in '
+                         f'[0, {V}] and start and end on mask words')
+    keys = torch.empty((B, V), dtype=torch.int64, device=verts.device)
+    if B * V == 0:
+        return keys
+    shape = masked_min_shape()
+    T, R, G, TM = shape
+    if -(-B // G) > 65535:
+        raise ValueError(f'{what}: B={B} is too large for the grid')
+    chunk, _ = _split(-(-B // G) * -(-V // (T * R)),
+                      max(1, m_end - m_begin), TM)
+    lib, fn = _build.entry(
+        'masked_min', 'tuch_masked_min_range',
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    with torch.cuda.device(verts.device):
+        err = fn(verts.data_ptr(), bits.data_ptr(), keys.data_ptr(), B, V,
+                 W, chunk, m_begin, m_end, _stream(verts))
+    _build.check(lib, err, 'masked-min range kernel launch')
+    masked_min_keys_cuda.launches += 1
+    return keys
+
+
 def affine_shape():
     """(threads, queries per thread, triangles per tile) of the built
     csrc/winding_affine.cu."""
@@ -233,6 +304,7 @@ def winding_numbers_affine_cuda(points4: torch.Tensor, rows: torch.Tensor
 
 winding_numbers_tris_cuda.launches = 0
 masked_min_dist_cuda.launches = 0
+masked_min_keys_cuda.launches = 0
 winding_numbers_affine_cuda.launches = 0
 
 
@@ -264,6 +336,17 @@ def masked_min_dist(verts: torch.Tensor, mask: torch.Tensor,
     if verts.device.type == 'cpu':
         return contact.masked_min_dist(verts, mask)
     return masked_min_dist_cuda(verts, mask, bits)
+
+
+def masked_min_keys(verts: torch.Tensor, mask: torch.Tensor,
+                    bits: torch.Tensor, m_begin: int, m_end: int
+                    ) -> torch.Tensor:
+    """The masked nearest vertex over the searched vertices [m_begin,
+    m_end) as (B, V) int64 keys (encode_keys): the plain version for a CPU
+    tensor, kernel 4's range entry for a CUDA one."""
+    if verts.device.type == 'cpu':
+        return masked_min_keys_ref(verts, mask, m_begin, m_end)
+    return masked_min_keys_cuda(verts, mask, bits, m_begin, m_end)
 
 
 # ---------------------------------------------------------------------------

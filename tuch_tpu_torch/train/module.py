@@ -1,11 +1,11 @@
 """The TUCH training step: HMR forward and backward with SMPLify-DC in the
 loop and the regressor loss, one Adam step.
 
-Counterpart of tuch_tpu/train/module.py (without its `mesh` option). The
-JAX package jit-compiles the step into one program over a functional
-state; here the step is eager PyTorch over a state whose HMR module holds
-the parameters and the BatchNorm statistics and is updated in place, and
-whose fits tensor is replaced. The order of the work is the JAX step's:
+Counterpart of tuch_tpu/train/module.py. The JAX package jit-compiles the
+step into one program over a functional state; here the step is eager
+PyTorch over a state whose HMR module holds the parameters and the
+BatchNorm statistics and is updated in place, and whose fits tensor is
+replaced. The order of the work is the JAX step's:
 ground-truth SMPL, fits lookup, camera estimation, HMR forward, in-the-loop
 SMPLify-DC on detached inputs, accept/reject and fits writeback, the loss,
 its gradient, optax's clip_by_global_norm when options.grad_clip > 0, and
@@ -15,6 +15,24 @@ The HMR's compute dtype (options.compute_dtype, set when the runtime builds
 it) needs nothing here: a bfloat16 HMR casts its float32 weights per call,
 its BatchNorm computes in float32 from float32 statistics, and its outputs,
 parameters and gradients are float32, so Adam's moments are too.
+
+On a (dp, cp) mesh (parallel/mesh.Mesh) each rank runs the step on its dp
+slice of the global batch, and the step computes what the JAX package's
+jit computes over the dp-sharded global batch, by reducing by hand where
+the global semantics couple the batch:
+  1. BatchNorm's statistics are the global batch's (models/hmr
+     sync_batchnorm over the dp group);
+  2. masked means and metrics divide by global counts (losses/regressor);
+  3. the contact compactions pick from the global batch (SMPLify-DC's
+     and the regressor loss's);
+  4. the fits store takes the global batch's rows, the last occurrence of
+     a row winning, on every rank;
+  5. the gradients are summed over dp once, as one flat all_reduce, and
+     clipped after it;
+  6. the head's dropout masks are the global batch's, sliced.
+The cp ranks of a dp row compute the same step on the same slice (the
+contact quadratics split among them), so their parameters stay equal bit
+for bit.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -29,9 +47,10 @@ from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.losses import regressor as RL
 from tuch_tpu_torch.losses.prior import GMMPrior
 from tuch_tpu_torch.losses.smplify import ContactAssets
-from tuch_tpu_torch.models.hmr import HMR, draw_dropout_masks
+from tuch_tpu_torch.models.hmr import HMR, draw_dropout_masks, sync_batchnorm
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward, smpl_forward_pose72
 from tuch_tpu_torch.ops import contact as contact_ops
+from tuch_tpu_torch.parallel import mesh as PM
 from tuch_tpu_torch.train import fits_store
 from tuch_tpu_torch.utils.projection import (estimate_translation,
                                              perspective_projection,
@@ -88,7 +107,25 @@ def region_contact_signature(verts: torch.Tensor,
         assets.region_mask_a, assets.region_mask_b)
 
 
-def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
+def _round_capacity(cap: int, mesh) -> int:
+    """A compaction capacity rounded up to a multiple of mesh dp, as the
+    JAX package rounds it (its shard_map needs the compacted batch to
+    divide over dp); 0 stays 0 (compaction off)."""
+    cap = int(cap)
+    if cap > 0 and mesh is not None:
+        cap = -(-cap // mesh.dp) * mesh.dp
+    return cap
+
+
+def _global_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of x over the global batch (x: this rank's rows)."""
+    if mesh is None or mesh.dp == 1:
+        return x.mean()
+    return PM.dp_sum(x.sum(), mesh) / (x.numel() * mesh.dp)
+
+
+def make_train_step(assets: TuchAssets, options: cfg.TrainConfig,
+                    mesh=None):
     """The step: step_fn(state, batch, dropout=None) -> (state, metrics,
     outputs), with metrics and outputs dicts of tensors.
 
@@ -99,6 +136,10 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
     them from state.generator. Each part of the step runs under a
     torch.profiler record_function span 'train_step.<part>', part one of
     STEP_PARTS, so that a profile splits the step's time.
+
+    mesh: a parallel/mesh.Mesh; batch is then this rank's dp slice
+    (mesh.shard_batch), dropout the global batch's masks, metrics global
+    values and outputs this rank's rows.
     """
     weights = RL.LossWeights(
         shape=options.shape_loss_weight,
@@ -121,13 +162,18 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
         contact_loss_weight=options.contact_in_the_loop_loss_weight,
         exterior_refresh_every=options.smplify_exterior_refresh,
         contact_candidate_k=options.contact_candidate_k,
-        contact_capacity=options.smplify_contact_capacity)
+        contact_capacity=_round_capacity(options.smplify_contact_capacity,
+                                         mesh),
+        mesh=mesh)
+    dp = 1 if mesh is None else mesh.dp
 
     def step_fn(state: TrainState, batch: Dict, dropout=None):
         hmr, smpl = state.hmr, assets.smpl
+        sync_batchnorm(hmr, None if mesh is None else mesh.dp_group)
         dev = state.fits.device
         b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         B = b['img'].shape[0]
+        rows = slice(*PM.local_rows(mesh, B))
         has_pose_3d = b['has_pose_3d'].bool()
         has_disc_contact = b['has_disc_contact'].bool()
         has_gt_kpts = b['has_gt_kpts'].bool()
@@ -164,7 +210,8 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
         with record_function('train_step.hmr_forward'):
             hmr.train()
             if dropout is None:
-                dropout = draw_dropout_masks(B, state.generator, dev)
+                dropout = draw_dropout_masks(B * dp, state.generator, dev)
+            dropout = [(d1[rows], d2[rows]) for d1, d2 in dropout]
             pred_rotmat, pred_betas, pred_camera = hmr(b['img'],
                                                        dropout=dropout)
             pred_out = smpl_forward(smpl, pred_betas, pred_rotmat[:, 1:],
@@ -213,9 +260,10 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
                     if use_contact_itl:
                         update = torch.where(
                             has_disc_contact, update & update_contact, update)
-                    smplify_metrics['smplify_accept_rate'] = \
-                        update.float().mean()
-                    smplify_metrics['opt_joint_loss_mean'] = o_jloss.mean()
+                    smplify_metrics['smplify_accept_rate'] = _global_mean(
+                        update.float(), mesh)
+                    smplify_metrics['opt_joint_loss_mean'] = _global_mean(
+                        o_jloss, mesh)
                     sel = update[:, None]
                     o_jloss = torch.where(update, new_jloss, o_jloss)
                     o_pose = torch.where(sel, res.pose, o_pose)
@@ -226,9 +274,11 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
                                           o_verts)
                     o_joints = torch.where(sel[..., None], res.joints,
                                            o_joints)
-                    new_fits = fits_store.update_fits(
-                        state.fits, gidx, o_pose, o_betas, rot_deg,
-                        is_flipped, update)
+                    # the global batch's rows on every rank
+                    new_fits = fits_store.update_fits(state.fits, *(
+                        PM.dp_gather(t, mesh) for t in (
+                            gidx, o_pose, o_betas, rot_deg, is_flipped,
+                            update)))
 
         with record_function('train_step.loss'):
             # ground-truth override
@@ -249,12 +299,15 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
                 hd=assets.hd if options.use_hd else None,
                 hd_k=options.hd_k,
                 candidate_k=options.contact_candidate_k,
-                contact_capacity=options.regressor_contact_capacity)
+                contact_capacity=_round_capacity(
+                    options.regressor_contact_capacity, mesh),
+                mesh=mesh)
 
         with record_function('train_step.backward'):
             names, params = zip(*hmr.named_parameters())
             grads = torch.autograd.grad(total, params, allow_unused=True,
                                         materialize_grads=True)
+            grads = PM.all_reduce_grads(grads, mesh)
             if options.grad_clip > 0:
                 grads = clip_by_global_norm(grads, options.grad_clip)
         with record_function('train_step.adam'), torch.no_grad():
@@ -263,7 +316,7 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig):
             for k, p in zip(names, params):
                 p.copy_(new[k])
 
-        metrics = {'loss': total.detach(),
+        metrics = {'loss': PM.dp_sum(total.detach(), mesh),
                    **{k: v.detach() for k, v in loss_dict.items()},
                    **smplify_metrics}
         outputs = dict(

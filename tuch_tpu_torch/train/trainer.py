@@ -13,6 +13,15 @@ trainer draws the predicted and the fitted body over the first image of the
 batch every summary_freq of an epoch (train/pred_shape, train/opt_shape,
 contact regions coloured where the sample has labels) and the predicted
 body after each validation (val/pred_shape).
+
+On a device mesh (--mesh_dp / --mesh_cp, one process per rank under
+torchrun) every rank runs the same loader with the same seed and takes its
+dp slice of each global batch (parallel/mesh.shard_batch), so the batches
+equal the single-process run's bit for bit; the step reduces over the
+mesh (train/module.py). Side effects happen on rank 0 only: metrics,
+prints, image summaries, validation and checkpoints. A resume restores on
+rank 0 and broadcasts the state; the ranks agree on each step whether the
+time budget or a SIGTERM ends the run.
 """
 
 import json
@@ -29,6 +38,7 @@ from tuch_tpu_torch import constants, resolve_device
 from tuch_tpu_torch.data.loader import (CheckpointLoader, LoaderState,
                                         add_fits_indices)
 from tuch_tpu_torch.models.smpl import smpl_forward, smpl_forward_pose72
+from tuch_tpu_torch.parallel import mesh as pmesh
 from tuch_tpu_torch.train import fits_store
 from tuch_tpu_torch.train.checkpoint import CheckpointManager
 from tuch_tpu_torch.train.module import (TuchAssets, init_train_state,
@@ -93,17 +103,28 @@ class Trainer:
     def __init__(self, options, hmr, assets: TuchAssets, train_ds, val_ds,
                  j_regressor_h36m: Optional[np.ndarray] = None,
                  device=None, renderer=None):
-        cfg.check_ported(options)
         self.options = options
         self.device = resolve_device(device)
+        # the (dp, cp) mesh when one is asked for or the world has ranks
+        self.mesh = None
+        if cfg.mesh_wanted(options):
+            self.mesh = pmesh.make_mesh(dp=options.mesh_dp,
+                                        cp=options.mesh_cp,
+                                        device=self.device)
+            if options.batch_size % self.mesh.dp:
+                raise ValueError(
+                    f'batch_size {options.batch_size} must divide over the '
+                    f'dp mesh axis ({self.mesh.shape})')
+        self.is_main = self.mesh is None or self.mesh.rank == 0
         self.model = hmr
         self.assets = assets
         self.train_ds = train_ds
         self.val_ds = val_ds
         self.joint_mapper_h36m = np.asarray(constants.H36M_TO_J14)
         self.j_regressor_h36m = j_regressor_h36m
-        self.renderer = renderer
-        self.logger = MetricsLogger(options.summary_dir)
+        self.renderer = renderer if self.is_main else None
+        self.logger = MetricsLogger(options.summary_dir) \
+            if self.is_main else None
         self.ckpt = CheckpointManager(options.checkpoint_dir)
         self.endtime = time.time() + options.time_to_run
 
@@ -121,9 +142,10 @@ class Trainer:
         self.offsets_table = np.asarray(
             [store.offsets[n] for n in train_ds.dataset_list], np.int32)
 
-        self.step_fn = make_train_step(assets, options)
+        self.step_fn = make_train_step(assets, options, mesh=self.mesh)
         self.state = init_train_state(hmr, store.params, options.lr,
                                       seed=options.seed)
+        pmesh.replicated(hmr, self.mesh)
         self.loader = CheckpointLoader(
             train_ds, batch_size=options.batch_size,
             shuffle=options.shuffle_train,
@@ -131,20 +153,62 @@ class Trainer:
         self.loader_state = LoaderState(epoch=0, batch_idx=0,
                                         perm_seed=options.seed)
 
-        # an explicit --checkpoint resumes from that file, wherever it is
-        if options.resume and (options.checkpoint is not None
-                               or self.ckpt.exists()):
-            self.state, ls = self.ckpt.restore(self.state,
-                                               options.checkpoint)
-            self.loader_state = LoaderState(
-                epoch=int(ls.get('epoch', 0)),
-                batch_idx=int(ls.get('batch_idx', 0)),
-                perm_seed=int(ls.get('perm_seed', options.seed)))
-            print(f'Resumed at step {self.state.step}, epoch '
-                  f'{self.loader_state.epoch}, batch '
-                  f'{self.loader_state.batch_idx}', flush=True)
+        # an explicit --checkpoint resumes from that file, wherever it is;
+        # on a mesh rank 0 decides, restores and broadcasts
+        resume = bool(options.resume and (options.checkpoint is not None
+                                          or self.ckpt.exists()))
+        if self._any_rank(resume, 0):
+            ls = {}
+            if self.is_main:
+                self.state, ls = self.ckpt.restore(self.state,
+                                                   options.checkpoint)
+            pos = self._broadcast_state([
+                ls.get('epoch', 0), ls.get('batch_idx', 0),
+                ls.get('perm_seed', options.seed)])
+            self.loader_state = LoaderState(*pos)
+            if self.is_main:
+                print(f'Resumed at step {self.state.step}, epoch '
+                      f'{self.loader_state.epoch}, batch '
+                      f'{self.loader_state.batch_idx}', flush=True)
         # the step last persisted: fit()'s final save skips if nothing ran
         self._last_saved_step = self.state.step
+
+    def _any_rank(self, flag: bool, src=None) -> bool:
+        """flag on a mesh: rank src's (src 0), or any rank's (None)."""
+        if self.mesh is None or self.mesh.dp * self.mesh.cp == 1:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], device=self.device)
+        if src is None:
+            pmesh.all_reduce_(t, torch.distributed.group.WORLD,
+                              torch.distributed.ReduceOp.MAX)
+        else:
+            pmesh.broadcast_([t], self.mesh, src)
+        return bool(t.item())
+
+    def _broadcast_state(self, position):
+        """Rank 0's state (HMR, Adam, fits, generator, step) and loader
+        position on every rank; returns the position (three ints)."""
+        st = self.state
+        opt = st.opt
+        ints = torch.tensor([st.step, opt.count, *position],
+                            dtype=torch.int64)
+        gen = st.generator.get_state()
+        pmesh.broadcast_([*st.hmr.parameters(), *st.hmr.buffers(),
+                          *(opt.mu[k] for k in sorted(opt.mu)),
+                          *(opt.nu[k] for k in sorted(opt.nu)),
+                          st.fits, ints, gen], self.mesh)
+        st.generator.set_state(gen)
+        opt.count = int(ints[1])
+        self.state = st._replace(step=int(ints[0]))
+        return [int(x) for x in ints[2:]]
+
+    def _print(self, msg: str):
+        if self.is_main:
+            print(msg, flush=True)
+
+    def _out_of_time(self) -> bool:
+        """The time budget is spent or a SIGTERM came, on any rank."""
+        return self._any_rank(time.time() > self.endtime)
 
     # ------------------------------------------------------------------
     def fit(self):
@@ -170,10 +234,10 @@ class Trainer:
                 self.loader_state = LoaderState(
                     epoch=epoch + 1, batch_idx=0,
                     perm_seed=self.loader_state.perm_seed)
-                print(f'================ EPOCH {epoch} DONE '
-                      f'================', flush=True)
-                if time.time() > self.endtime:
-                    print('time budget reached; stopping', flush=True)
+                self._print(f'================ EPOCH {epoch} DONE '
+                            f'================')
+                if self._out_of_time():
+                    self._print('time budget reached; stopping')
                     break
             if self.state.step != self._last_saved_step:
                 self._save_checkpoint(self.loader_state.epoch,
@@ -183,7 +247,8 @@ class Trainer:
                 signal.signal(signal.SIGTERM, prev_handler)
 
     def close(self):
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
 
     def train_one_epoch(self, epoch: int) -> bool:
         """One epoch from the loader's position; False after a mid-epoch
@@ -216,7 +281,8 @@ class Trainer:
                 if bi == prof_hi and prof is not None:
                     prof.stop()
                     prof = None
-                batch = add_fits_indices(batch, self.offsets_table)
+                batch = pmesh.shard_batch(
+                    add_fits_indices(batch, self.offsets_table), self.mesh)
                 self.state, metrics, outputs = self.step_fn(self.state,
                                                             batch)
                 step += 1
@@ -234,7 +300,7 @@ class Trainer:
                 if saved_this_step:
                     val_error = self.validate(step)
                     self._save_checkpoint(epoch, bi + 1, val_error)
-                if time.time() > self.endtime:
+                if self._out_of_time():
                     if not saved_this_step:
                         self._save_checkpoint(epoch, bi + 1, None)
                     self.loader_state = LoaderState(
@@ -251,7 +317,9 @@ class Trainer:
     def _save_checkpoint(self, epoch: int, next_batch_idx: int, val_error):
         """Persist the state, the fits and the position a resume continues
         from, with the loader's permutation seed (not --seed: a resume
-        under another seed keeps the original stream)."""
+        under another seed keeps the original stream); rank 0 only."""
+        if not self.is_main:
+            return
         self.ckpt.save(self.state, {
             'epoch': epoch, 'batch_idx': next_batch_idx,
             'perm_seed': self.loader_state.perm_seed}, val_error)
@@ -261,6 +329,8 @@ class Trainer:
         self._last_saved_step = self.state.step
 
     def _log_train_metrics(self, metrics, step, epoch, bi):
+        if not self.is_main:
+            return
         self.logger.scalars('train', metrics, step)
         if step % 25 == 0:
             msg = ', '.join(f'{k}: {float(v):.4f}'
@@ -296,8 +366,9 @@ class Trainer:
     def validate(self, step: int) -> float:
         """v2v and MPJPE on the validation set, in mm (trainer.py:172-267):
         without the H36M joint regressor the joint error is a vertex
-        subsample, logged as mpjpe_v2v_proxy. Returns the joint error."""
-        if self.val_ds is None:
+        subsample, logged as mpjpe_v2v_proxy. Returns the joint error; rank
+        0 only (nan on the others)."""
+        if self.val_ds is None or not self.is_main:
             return float('nan')
         loader = CheckpointLoader(self.val_ds,
                                   batch_size=self.options.batch_size,
