@@ -45,7 +45,13 @@ and the SMPLify-DC slice, on the same body with every contact asset:
              nearest vertex also at B=4, with its registers; it, gather and
              scatter-add by CUDA-graph replay, the latter two each one
              device kernel per call, with the host µs per call of their
-             wrappers and library calls at B=64 and 4);
+             wrappers and library calls at B=64 and 4); scatter-add bit for
+             bit against the CPU's index_add_ also where its plan has
+             edges (B=4 and 1, every q on one row, half the rows empty, Q
+             below V, rows either side of a CTA edge), timed at B=64, 4
+             and 1 with its plan (CTAs per item, shared memory, ptxas),
+             beside zero-fill + index_add_ with torch's deterministic mode
+             off and on, each said to give the CPU's bits or not;
   8. fit     the demo (demo_smplify_dc --synthetic, 4 images, 100 iterations,
              ResNet-50 SPIN init): finite outputs, a lower reprojection loss
              than the init's, and each kernel launched exactly its count per
@@ -147,8 +153,11 @@ and the offline tools and the real-format path:
              test database, each card against CPU.
 
 and the device mesh (parallel/), its ranks processes that share the
-card over gloo (NCCL refuses two ranks on one card), each started as
-`chip_smoke.py --rank_job` with torchrun's environment after the build:
+card over gloo (NCCL refuses two ranks on one card), with torchrun's
+environment after the build: four `chip_smoke.py --rank_worker` processes
+started once (RankPool) run every group's ranks in turn, each job from
+what a fresh process has; the NCCL groups get fresh `--rank_job`
+processes:
 
  19. cp      kernel 4's range entry against its plain version on the posed
              B=64 body over the cuts of cp 2 and 4 (the MIN of the ranges
@@ -912,6 +921,29 @@ def _hold_scatter(label, idx, V, seed):
     return e
 
 
+def _hold_scatter_edges(idx, V):
+    """_hold_scatter where kernel 6's plan has edges, from the posed B=64
+    body's nearest vertices `idx`: the demo's and an EFT step's batches
+    (4 and 1), every q on one row (one long chain), half the rows empty,
+    Q below V (the candidate gather's shape), and every q on the two rows
+    either side of the first CTA edge of the B=64 plan (two long rows, one
+    ending a CTA's range and one starting the next). Returns the largest
+    error."""
+    from tuch_tpu_torch.ops import gather as G
+    B, Q = idx.shape
+    rows = -(-V // G.scatter_plan(B, V, Q))
+    cases = {f'posed B={b}': idx[:b] for b in (FIT_IMAGES, 1)}
+    cases.update({
+        'B=1 every q on one row': torch.full_like(idx[:1], V // 2),
+        f'B={FIT_IMAGES} half the rows empty': idx[:FIT_IMAGES] // 2 * 2,
+        f'B={FIT_IMAGES} Q={CP_K} (the candidate gather)':
+            idx[:FIT_IMAGES, :CP_K],
+        f'B={B} every q either side of a CTA edge':
+            torch.where(idx % 2 == 0, rows - 1, rows).int()})
+    return max(_hold_scatter(label, i.contiguous(), V, seed=n)
+               for n, (label, i) in enumerate(cases.items()))
+
+
 def _chunked(fn, *tensors):
     """The plain version over a B=64 input in batches of PLAIN_CHUNK (its
     intermediates at B=64 would need tens of GB)."""
@@ -978,7 +1010,7 @@ def phase_slice_kernels(runtime, results):
                               bound_ms=bound_ms, bound_by=bound_by,
                               max_abs_err=err['winding'])
     err['scatter_add'] = max(err['scatter_add'], _hold_scatter(
-        f'posed B={B}', idx, V, seed=B))
+        f'posed B={B}', idx, V, seed=B), _hold_scatter_edges(idx, V))
     for b in (FIT_IMAGES, TRAIN_B):
         _time_masked_min(verts[:b].contiguous(), mask, bits, results, err)
     _time_rows(verts, idx, results, err)
@@ -1043,10 +1075,27 @@ def host_us(fn, calls=1000):
     return 1e6 * (time.perf_counter() - t0) / calls
 
 
+def _with_deterministic(fn, on):
+    """fn with torch's deterministic mode on or off while it runs (a CUDA
+    graph captured from it keeps the kernels that mode chose)."""
+    def call():
+        mode = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        try:
+            return fn()
+        finally:
+            torch.use_deterministic_algorithms(mode, warn_only=warn)
+    return call
+
+
 def _row_calls(verts, idx):
-    """{name: (kernel, plain, {library call: fn}, (bound ms, bound by))} of
-    kernels 5 and 6 on these inputs. The scatter's library call zeroes its
-    output, as kernel 6 does."""
+    """{name: (kernel, plain, {library call: fn}, (bound ms, bound by),
+    the plain version's result on the CPU)} of kernels 5 and 6 on these
+    inputs. The scatter's library calls zero their output, as kernel 6
+    does, and run index_add_ with torch's deterministic mode off (atomic
+    adds) and on (the form the training entry points run,
+    runtime.deterministic)."""
     from tuch_tpu_torch.ops import gather as G
     B, V, _ = verts.shape
     flat = (torch.arange(B, device=verts.device)[:, None] * V
@@ -1059,7 +1108,7 @@ def _row_calls(verts, idx):
 
     def zero_index_add():
         buf.zero_()
-        buf.index_add_(0, flat, src)
+        return buf.index_add_(0, flat, src)
 
     nbytes = 4 * B * (3 * V + V + 3 * V)
     return {
@@ -1068,11 +1117,17 @@ def _row_calls(verts, idx):
                    {'torch.gather': lambda: torch.gather(verts, 1, idx_long),
                     'index_select': lambda: torch.index_select(rows, 0,
                                                                flat)},
-                   bound(0, nbytes)),
+                   bound(0, nbytes),
+                   lambda: G.gather_rows_ref(verts.cpu(), idx.cpu())),
         'scatter_add': (lambda: G.scatter_add_rows_cuda(contrib, idx, V),
                         lambda: G.scatter_add_rows_ref(contrib, idx, V),
-                        {'zero_ + index_add_': zero_index_add},
-                        bound(3 * B * V, nbytes)),
+                        {'zero_ + index_add_': _with_deterministic(
+                            zero_index_add, False),
+                         'zero_ + index_add_ (deterministic mode)':
+                         _with_deterministic(zero_index_add, True)},
+                        bound(3 * B * V, nbytes),
+                        lambda: G.scatter_add_rows_ref(contrib.cpu(),
+                                                       idx.cpu(), V)),
     }
 
 
@@ -1080,26 +1135,34 @@ def _time_rows(verts, idx, results, err):
     """Kernels 5 and 6 at the training batch: the kernel, its plain version
     and its library calls timed by CUDA-graph replay (device time only; a
     kernel shorter than its wrapper's host time is otherwise timed by the
-    host), each beside the bound; then the host µs per call of the wrapper
-    and of each library call at B=64 and at the demo's B=4, where the
-    device time per call is below the host's. The library yardstick is the
-    faster call."""
+    host), each beside the bound, and whether each library call gives the
+    CPU's bits; then the host µs per call of the wrapper and of each
+    library call at B=64 and at the demo's B=4, where the device time per
+    call is below the host's; then kernel 6 at B=4 and 1 (the demo's fit,
+    an EFT step) with its plan. The library yardstick is the faster
+    call."""
+    from tuch_tpu_torch.ops import gather as G
     B, V, _ = verts.shape
-    small = _row_calls(verts[:FIT_IMAGES].contiguous(),
-                       idx[:FIT_IMAGES].contiguous())
-    for name, (kern, plain, libs, (bound_ms, bound_by)) in \
+    small = {b: _row_calls(verts[:b].contiguous(), idx[:b].contiguous())
+             for b in (FIT_IMAGES, 1)}
+    for name, (kern, plain, libs, (bound_ms, bound_by), want) in \
             _row_calls(verts, idx).items():
         ms = graph_ms(kern, iters=50)
         plain_ms = graph_ms(plain, iters=20)
         lib_ms = {k: graph_ms(f, iters=50) for k, f in libs.items()}
+        want = want()
+        cpu_bits = {k: torch.equal(f().reshape(want.shape).cpu(), want)
+                    for k, f in libs.items()}
         host = {}
-        for tag, (k4, _, libs4, _) in ((f'B={B}', (kern, plain, libs, None)),
-                                       (f'B={FIT_IMAGES}', small[name])):
+        for tag, (k4, _, libs4, _, _) in (
+                (f'B={B}', (kern, plain, libs, None, None)),
+                (f'B={FIT_IMAGES}', small[FIT_IMAGES][name])):
             host[f'{tag} wrapper'] = host_us(k4)
             host.update({f'{tag} {k}': host_us(f) for k, f in libs4.items()})
         print(f'[kernel] {name} B={B} V={V} Q={V}: kernel {ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, ' + ', '.join(
-                  f'{k} {t:.4f} ms' for k, t in lib_ms.items())
+                  f'{k} {t:.4f} ms (the CPU\'s bits {cpu_bits[k]})'
+                  for k, t in lib_ms.items())
               + f', bound {bound_ms:.4f} ms ({bound_by}), '
               f'{bound_ms / ms:.1%} of bound (CUDA-graph replays, device '
               'time); host µs per call: ' + ', '.join(
@@ -1115,6 +1178,19 @@ def _time_rows(verts, idx, results, err):
         check(len(work) == 1 and work[0][2] == 1
               and f'{name}_rows' in work[0][0],
               f'{name}: device work of one call {work}')
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (B, FIT_IMAGES, 1):
+        split = G.scatter_plan(b, V, V, sms)
+        b_ms = results['scatter_add']['ms'] if b == B else graph_ms(
+            small[b]['scatter_add'][0], iters=50)
+        b_bound, _ = bound(3 * b * V, 4 * b * (3 * V + V + 3 * V))
+        print(f'[kernel] scatter_add B={b} V={V} Q={V}: kernel {b_ms:.4f} '
+              f'ms (CUDA-graph replay), bound {b_bound:.4f} ms, '
+              f'{b_bound / b_ms:.1%} of bound; plan: {split} CTAs of 1024 '
+              f'threads per batch item ({b * split} CTAs on {sms} SMs), '
+              f'{G.scatter_shared_bytes(V, V, split)} bytes of shared memory '
+              f'each; ptxas {ptxas_line("gather", "scatter_add_rows_kernel")}',
+              flush=True)
 
 
 def route_counters():
@@ -3078,34 +3154,103 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+class RankPool:
+    """POOL_SIZE processes that stay up through phases 19-21 and run the
+    ranks of run_ranks' groups, so that a group costs no process start,
+    torch import, CUDA context or kernel load (~10-25 s each when every
+    group started its own). Each is `chip_smoke.py --rank_worker`, started
+    once and warmed while the parent works, and takes jobs one at a time
+    from its inbox under PAR_DIR. Before each job it puts back what a fresh
+    rank process had: the environment (the parent's, with the rank's
+    torchrun variables), the working directory, torch's deterministic,
+    cuDNN, TF32 and thread settings and the default generators' seed; after
+    it, the job has ended its process group. A job that fails ends its
+    worker (its log holds the traceback), and the group with it."""
+
+    def __init__(self, size):
+        self.dir = os.path.abspath(os.path.join(PAR_DIR, 'pool'))
+        os.makedirs(self.dir, exist_ok=True)
+        self.procs = []
+        for slot in range(size):
+            with open(os.path.join(self.dir, f'worker{slot}.log'), 'w') as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     '--rank_worker', str(slot), '--job_dir', self.dir],
+                    stdout=f, stderr=subprocess.STDOUT))
+
+    def inbox(self, slot):
+        return os.path.join(self.dir, f'worker{slot}.job')
+
+    def submit(self, slot, spec):
+        path = self.inbox(slot)
+        torch.save(spec, path + '.tmp')
+        os.replace(path + '.tmp', path)
+
+    def close(self, timeout=60):
+        for slot, p in enumerate(self.procs):
+            if p.poll() is None:
+                self.submit(slot, None)
+        deadline = time.monotonic() + timeout
+        for p in self.procs:
+            try:
+                p.wait(max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+POOL_SIZE = 4                    # the largest group: cp 4, EFT on 4
+POOL = []                        # the RankPool of phases 19-21, while up
+
+
+def _rank_env(world, r, port):
+    return dict(MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                LOCAL_WORLD_SIZE=str(world))
+
+
 def run_ranks(job, world, args, timeout=PAR_TIMEOUT, expect_fail=False):
-    """Run `job` on `world` ranks, each `python3 chip_smoke.py --rank_job`
-    with torchrun's environment (a rank a process, all on this card), and
-    return their results in rank order. A rank that fails or a group that
-    outlives `timeout` fails the run (every rank is killed first); with
+    """Run `job` on `world` ranks, one process each with torchrun's
+    environment, all on this card, and return their results in rank order:
+    on the pool's workers (RankPool) while it is up, else (and for a group
+    expected to fail) in fresh `python3 chip_smoke.py --rank_job`
+    processes. A rank that fails or a group that outlives `timeout` fails
+    the run (every rank is killed first, the pool with it); with
     expect_fail, (returncodes, logs) instead."""
     d = os.path.abspath(os.path.join(PAR_DIR,
                                      f'{job}_{world}_{time.time_ns()}'))
     os.makedirs(d)
     torch.save(args, os.path.join(d, 'args.pt'))
     port = free_port()
-    procs, logs = [], []
-    for r in range(world):
-        env = dict(os.environ, MASTER_ADDR='localhost', MASTER_PORT=str(port),
-                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                   LOCAL_WORLD_SIZE=str(world))
-        logs.append(os.path.join(d, f'rank{r}.log'))
-        with open(logs[-1], 'w') as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), '--rank_job',
-                 job, '--job_dir', d], env=env, stdout=log,
-                stderr=subprocess.STDOUT))
+    logs = [os.path.join(d, f'rank{r}.log') for r in range(world)]
+    pooled = (bool(POOL) and not expect_fail and world <= POOL_SIZE
+              and not job.startswith('nccl'))   # NCCL in its own process
+    procs = []
+    if pooled:
+        pool_dir, procs = POOL[0].dir, POOL[0].procs[:world]
+        for r in range(world):
+            POOL[0].submit(r, dict(job=job, job_dir=d, log=logs[r],
+                                   env=_rank_env(world, r, port)))
+    else:
+        for r in range(world):
+            with open(logs[r], 'w') as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), '--rank_job',
+                     job, '--job_dir', d],
+                    env=dict(os.environ, **_rank_env(world, r, port)),
+                    stdout=log, stderr=subprocess.STDOUT))
+    results = [os.path.join(d, f'rank{r}.pt') for r in range(world)]
+
+    def running():
+        if pooled:      # a worker is done with the job once it saved it
+            return not all(os.path.exists(f) for f in results)
+        return any(p.poll() is None for p in procs)
     deadline = time.monotonic() + timeout
     failed = None
     try:
-        while any(p.poll() is None for p in procs):
+        while running():
             bad = [r for r, p in enumerate(procs)
-                   if p.returncode not in (None, 0)]
+                   if p.poll() is not None and (pooled or p.returncode)]
             if bad and not expect_fail:
                 failed = f'rank {bad[0]} exited {procs[bad[0]].returncode}'
                 break
@@ -3114,20 +3259,25 @@ def run_ranks(job, world, args, timeout=PAR_TIMEOUT, expect_fail=False):
                 break
             time.sleep(0.2)
     finally:
-        for p in procs:
+        if failed and pooled:
+            for p in POOL.pop().procs:
+                p.kill()
+                p.wait()
+        for p in [] if pooled else procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
     texts = []
-    for path in logs:
+    for r, path in enumerate(logs):
+        if not os.path.exists(path) and pooled:   # the worker's own log
+            path = os.path.join(pool_dir, f'worker{r}.log')
         with open(path) as f:
             texts.append(f.read())
     if expect_fail:
-        found = [os.path.join(d, f'rank{r}.pt') for r in range(world)]
         return ([p.returncode for p in procs], failed,
                 [torch.load(f, weights_only=False) if os.path.exists(f)
-                 else None for f in found], texts)
-    if failed is None and any(p.returncode for p in procs):
+                 else None for f in results], texts)
+    if failed is None and not pooled and any(p.returncode for p in procs):
         failed = 'ranks exited ' + str([p.returncode for p in procs])
     if failed:
         for r, t in enumerate(texts):
@@ -3136,8 +3286,84 @@ def run_ranks(job, world, args, timeout=PAR_TIMEOUT, expect_fail=False):
     for line in texts[0].splitlines():
         if line.startswith('['):
             print(line, flush=True)
-    return [torch.load(os.path.join(d, f'rank{r}.pt'), weights_only=False)
-            for r in range(world)]
+    return [torch.load(f, weights_only=False) for f in results]
+
+
+def _fresh_state():
+    """What a rank process has before its job: torch's settings that the
+    port's entry points change, as a function that puts them back."""
+    import torch.utils.deterministic as tud
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = dict(
+        det=torch.are_deterministic_algorithms_enabled(),
+        warn=torch.is_deterministic_algorithms_warn_only_enabled(),
+        fill=tud.fill_uninitialized_memory, cudnn_det=cudnn.deterministic,
+        bench=cudnn.benchmark, cudnn_tf32=cudnn.allow_tf32,
+        mm_tf32=matmul.allow_tf32,
+        precision=torch.get_float32_matmul_precision(),
+        threads=torch.get_num_threads(), seed=torch.initial_seed(),
+        env=dict(os.environ), cwd=os.getcwd())
+
+    def restore(env=None):
+        os.environ.clear()
+        os.environ.update(saved['env'], **(env or {}))
+        os.chdir(saved['cwd'])
+        torch.use_deterministic_algorithms(saved['det'],
+                                           warn_only=saved['warn'])
+        tud.fill_uninitialized_memory = saved['fill']
+        cudnn.deterministic, cudnn.benchmark = (saved['cudnn_det'],
+                                                saved['bench'])
+        cudnn.allow_tf32, matmul.allow_tf32 = (saved['cudnn_tf32'],
+                                               saved['mm_tf32'])
+        torch.set_float32_matmul_precision(saved['precision'])
+        torch.set_num_threads(saved['threads'])
+        torch.manual_seed(saved['seed'])
+    return restore
+
+
+def rank_worker(slot, pool_dir):
+    """A RankPool worker: warm up (CUDA, the kernel libraries the parent
+    built), then run the jobs of its inbox in turn, each with its output in
+    the job's rank log, until it reads None."""
+    import gc
+    import traceback
+    from tuch_tpu_torch.ops import _build
+    torch.cuda.init()
+    for name in _build.sources():
+        _build.load(name)
+    restore = _fresh_state()
+    inbox = os.path.join(pool_dir, f'worker{slot}.job')
+    while True:
+        if not os.path.exists(inbox):
+            time.sleep(0.05)
+            continue
+        spec = torch.load(inbox, weights_only=False)
+        os.remove(inbox)
+        if spec is None:
+            return 0
+        restore(spec['env'])
+        sys.stdout.flush()
+        sys.stderr.flush()
+        keep = os.dup(1), os.dup(2)
+        with open(spec['log'], 'w') as log:
+            os.dup2(log.fileno(), 1)
+            os.dup2(log.fileno(), 2)
+            try:
+                rank_job(spec['job'], spec['job_dir'])
+            except BaseException:
+                traceback.print_exc()
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(1)
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os.dup2(keep[0], 1)
+                os.dup2(keep[1], 2)
+        for fd in keep:
+            os.close(fd)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def rank_job(job, job_dir):
@@ -3272,18 +3498,26 @@ def mesh_train_run(name, backbone, flags, ref_path=None, ref_file=MESH_REF,
     the world's process group (a group of 1: the mesh's BatchNorm in one
     process)."""
     from tuch_tpu_torch import config as cfgmod
-    from tuch_tpu_torch.cli import train as train_cli
-    from tuch_tpu_torch.ops import attention as A
-    from tuch_tpu_torch.parallel import contact_parallel as CPAR
+    from tuch_tpu_torch.train import module as TM
     opts = cfgmod.parse_config(cfgmod.TrainConfig, train_argv(
         name, '--backbone', backbone, '--val_and_checkpoint_freq', '0',
         *flags))
+    own_sync = TM.sync_batchnorm
     if sync_world:      # the step sets BatchNorm's group at each call
         import torch.distributed as dist
-        from tuch_tpu_torch.models.hmr import sync_batchnorm
-        from tuch_tpu_torch.train import module as TM
-        TM.sync_batchnorm = lambda model, group: sync_batchnorm(
+        TM.sync_batchnorm = lambda model, group: own_sync(
             model, dist.group.WORLD)
+    try:
+        return _mesh_train_run(name, opts, ref_path, ref_file, also)
+    finally:            # a pooled worker runs other jobs after this one
+        TM.sync_batchnorm = own_sync
+
+
+def _mesh_train_run(name, opts, ref_path, ref_file, also):
+    """mesh_train_run's run, from its parsed options."""
+    from tuch_tpu_torch.cli import train as train_cli
+    from tuch_tpu_torch.ops import attention as A
+    from tuch_tpu_torch.parallel import contact_parallel as CPAR
     tr = train_cli.build(opts)
     counters = dict(cp_counters(), mha=A.mha_cuda)
     rec = instrument(tr, counters, stop_after=MESH_TRAIN_STEPS)
@@ -3423,7 +3657,10 @@ def job_eft(args):
             window['end'] = time.time()
             window['records'] = self.records
     EF.EFTFitter.fit = timed
-    written = fit_eft.main(args['argv'])
+    try:
+        written = fit_eft.main(args['argv'])
+    finally:            # a pooled worker runs other jobs after this one
+        EF.EFTFitter.fit = fit
     return dict(written=written, **window)
 
 
@@ -3915,19 +4152,26 @@ def phase_mesh_eval_eft(card):
 
 
 def parallel_phases(card, results=None, launches=None):
-    """Phases 19-21 (the build first, once, before any rank starts)."""
+    """Phases 19-21 (the build first, once, before any rank starts), their
+    groups of ranks on one RankPool."""
     from tuch_tpu_torch import runtime as rt
     t0 = time.perf_counter()
     os.makedirs(PAR_DIR, exist_ok=True)
-    fit_rt = rt.build_runtime(device=DEV, synthetic=True, with_contact=True)
-    phase_cp_contact(fit_rt, card, {} if results is None else results,
-                     {} if launches is None else launches)
-    del fit_rt
-    torch.cuda.empty_cache()
-    clock('20')
-    phase_mesh_train(card)
-    clock('21')
-    phase_mesh_eval_eft(card)
+    POOL.append(RankPool(POOL_SIZE))     # warms up while phase 19 starts
+    try:
+        fit_rt = rt.build_runtime(device=DEV, synthetic=True,
+                                  with_contact=True)
+        phase_cp_contact(fit_rt, card, {} if results is None else results,
+                         {} if launches is None else launches)
+        del fit_rt
+        torch.cuda.empty_cache()
+        clock('20')
+        phase_mesh_train(card)
+        clock('21')
+        phase_mesh_eval_eft(card)
+    finally:
+        while POOL:
+            POOL.pop().close()
     shutil.rmtree(PAR_DIR, ignore_errors=True)
     print(f'[parallel] phases 19-21 in {time.perf_counter() - t0:.1f} s',
           flush=True)
@@ -3983,6 +4227,7 @@ def main(argv=None) -> int:
                    help='phases 1 and 19-21 (the device mesh) alone, with '
                         'no result lines')
     p.add_argument('--rank_job', help=argparse.SUPPRESS)
+    p.add_argument('--rank_worker', type=int, help=argparse.SUPPRESS)
     p.add_argument('--job_dir', help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3991,6 +4236,8 @@ def main(argv=None) -> int:
     import tuch_tpu_torch  # noqa: F401  (fails outside the repository)
     if args.rank_job:              # one rank of phases 19-21 (run_ranks)
         return rank_job(args.rank_job, args.job_dir)
+    if args.rank_worker is not None:   # a RankPool worker
+        return rank_worker(args.rank_worker, args.job_dir)
     card = card_line()
     kinds = torch.cuda.get_device_name(0)
     print(f'[device] {kinds}; torch {torch.__version__}, CUDA '

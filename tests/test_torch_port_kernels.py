@@ -168,24 +168,50 @@ def test_split_covers_the_axis_in_whole_tiles():
         assert base * splits <= max(base, CK.TARGET_BLOCKS + base)
 
 
-@pytest.mark.parametrize('V,Q,ok', [
-    (6890, 6890, True),           # the body: 55,248 bytes, above the 48 KB
-    (2049, 1029, True),           # that a block gets without opting in
-    (300, 3000, True), (5, 37, True), (1, 1, True),
-    (10475, 10475, True),         # SMPL-X's mesh
-    (58080, 0, True),             # the largest that fits: 232,448 bytes
-    (58081, 0, False),
-    (1, 58080, False),
+@pytest.mark.parametrize('B,V,Q,split', [
+    (64, 6890, 6890, 2),         # the training batch: 128 CTAs, one an SM
+    (200, 6890, 6890, 1),        # more items than SMs
+    (8, 6890, 6890, 16),
+    (4, 6890, 6890, 32),         # the demo's fit: MAX_SPLIT CTAs an item
+    (1, 6890, 6890, 32),         # an EFT step
+    (64, 10475, 10475, 4),       # SMPL-X's mesh: shared memory sets 4
+    (3, 300, 1029, 32),
+    (2, 5, 37, 5),               # no more CTAs than rows
+    (1, 1, 1, 1),
+    (70000, 1, 1, 1),
 ])
-def test_scatter_shared_memory_holds_counts_and_slots_or_refuses(V, Q, ok):
-    """Kernel 6 sorts one batch item's contributions by row in one block's
-    shared memory: 32 + V + Q ints, at most a block's 227 KB."""
-    assert G.scatter_shared_bytes(V, Q) == 4 * (32 + V + Q)
-    if ok:
-        G.check_shared(V, Q, 'scatter')
+def test_scatter_plan_fills_the_card_within_shared_memory(B, V, Q, split):
+    """Kernel 6 runs `split` CTAs per batch item, one an SM: as many as
+    fill the 132 SMs, more where a CTA's shared memory (20 Q + 8 rows + 132
+    bytes, rows = ceil(V / split)) needs them, at most MAX_SPLIT and V;
+    fewer would not fit."""
+    assert G.scatter_plan(B, V, Q) == split
+    rows = -(-V // split)
+    assert G.scatter_shared_bytes(V, Q, split) == 20 * Q + 8 * rows + 132
+    assert G.scatter_shared_bytes(V, Q, split) <= G.MAX_SHARED
+    if split > max(1, G.H100_SMS // B):
+        assert G.scatter_shared_bytes(V, Q, split - 1) > G.MAX_SHARED
+    assert split <= min(G.MAX_SPLIT, V)
+
+
+@pytest.mark.parametrize('B,V,Q,most', [
+    (1, 1, 11615, None), (1, 1, 11616, 11615),
+    (64, 6890, 11529, None), (64, 6890, 11530, 11529),
+])
+def test_scatter_plan_refuses_what_shared_memory_cannot_hold(B, V, Q, most):
+    """Every CTA holds its item's whole index row and room for all of its
+    contributions, so Q is bounded at any split; the refusal names the
+    largest Q the plan holds at that V."""
+    if most is None:
+        G.scatter_plan(B, V, Q)
     else:
-        with pytest.raises(ValueError, match='shared memory'):
-            G.check_shared(V, Q, 'scatter')
+        with pytest.raises(ValueError, match=f'shared memory.*Q <= {most}'):
+            G.scatter_plan(B, V, Q)
+
+
+def test_scatter_plan_constants_are_the_kernels():
+    assert _constexpr('gather.cu', 'MAX_SPLIT') == G.MAX_SPLIT
+    assert _constexpr('gather.cu', 'MAX_SHARED') == G.MAX_SHARED
 
 
 @pytest.mark.parametrize('B,Q,V,ok', [
@@ -722,8 +748,20 @@ def _row_case(kind, B, V, Q, rng):
     if kind == 'out_of_range':
         return rng.choice(np.array([-1, V, -7, V + 3, 2 ** 31 - 1, -2 ** 31],
                                    np.int64), (B, Q)).astype(np.int32)
-    if kind == 'one_row':
+    if kind in ('one_row', 'every_q_in_one_row'):
         return np.full((B, Q), V // 2, np.int32)
+    if kind == 'half_the_rows_empty':
+        return (2 * rng.randint(0, V // 2, (B, Q))).astype(np.int32)
+    if kind.startswith('nearest_vertices'):
+        # skewed as masked-min argmins are: many vertices share one
+        return (rng.zipf(1.3, (B, Q)) % V).astype(np.int32)
+    if kind.startswith('rows_at_cta_edges'):
+        # the rows on both sides of each CTA's row range, from all of q:
+        # long rows that end and start a CTA's range
+        rows = -(-V // G.scatter_plan(B, V, Q))
+        edges = np.array(sorted({r for k in range(1, -(-V // rows))
+                                 for r in (k * rows - 1, k * rows)}))
+        return rng.choice(edges, (B, Q)).astype(np.int32)
     idx = rng.randint(-2, V + 2, (B, Q)).astype(np.int32)
     idx[:, :2] = [0, V - 1]     # the rows whose 16-byte word another item's
     return idx                  # rows share: the narrow reductions
@@ -740,15 +778,26 @@ def _row_case(kind, B, V, Q, rng):
     ('out_of_range', 2, 50, 70),
     ('one_row', 2, 300, 3000),
     ('tile_across_a_batch_boundary', 5, 257, 258),
+    ('every_q_in_one_row', 1, 6890, 6890),
+    ('half_the_rows_empty', 3, 1001, 2000),
+    ('v_not_a_multiple_of_32', 2, 6889, 6890),
+    ('candidate_gather_q_below_v', 4, 6890, 984),
+    ('nearest_vertices_b1', 1, 6890, 6890),
+    ('nearest_vertices_b4', 4, 6890, 6890),
+    ('nearest_vertices_b64', 64, 6890, 6890),
+    ('rows_at_cta_edges_b1', 1, 6890, 6890),
+    ('rows_at_cta_edges_b64', 64, 6890, 6890),
 ])
 def test_gather_and_scatter_kernels_edge_cases_on_card(cuda_device, kind, B,
                                                        V, Q):
     """Gather bitwise equal to the plain version, scatter bit for bit equal
     to the plain version on the CPU (randn contributions: both sum each row
-    in ascending q), one launch each, at the shapes where the kernels'
-    tiles, the scan's runs and the rows' slot lists have edges: a ragged
-    last tile, rows with no contribution, every index out of range, every
-    index on one row (one long list to sort)."""
+    in ascending q) and to itself on a second launch, one launch each, at
+    the shapes where the kernels' tiles, the CTAs' row ranges and the
+    rows' slot lists have edges: a ragged last tile, rows with no
+    contribution, every index out of range, every index on one row (one
+    long chain), skewed rows as nearest vertices give, Q below V (the
+    candidate gather), the training, demo and EFT batches."""
     rng = np.random.RandomState(B * 100003 + V * 7 + Q)
     idx = torch.from_numpy(_row_case(kind, B, V, Q, rng)).to(cuda_device)
     vals = torch.from_numpy(rng.randn(B, V, 3).astype(np.float32)).to(
@@ -764,6 +813,31 @@ def test_gather_and_scatter_kernels_edge_cases_on_card(cuda_device, kind, B,
     want = G.scatter_add_rows_ref(contrib.cpu(), idx.cpu(), V)
     assert sc.shape == (B, V, 3)
     assert torch.equal(sc.cpu(), want)
+    assert torch.equal(G.scatter_add_rows_cuda(contrib, idx, V), sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('split', [1, 2, 3, 7, 32])
+def test_scatter_kernel_is_the_same_at_every_split_on_card(cuda_device,
+                                                           split):
+    """Kernel 6 launched directly at other CTAs per item than the plan's:
+    bit for bit the plain version on the CPU whatever the split."""
+    from tuch_tpu_torch.ops import _build
+    rng = np.random.RandomState(split)
+    B, V, Q = 3, 2000, 3001
+    idx = torch.from_numpy(_row_case('nearest_vertices', B, V, Q, rng)).to(
+        cuda_device)
+    contrib = torch.from_numpy(rng.randn(B, Q, 3).astype(np.float32)).to(
+        cuda_device)
+    out = torch.empty(B, V, 3, device=cuda_device)
+    lib, fn = _build.entry('gather', 'tuch_scatter_add_rows',
+                           G._SCATTER_ARGS)
+    _build.check(lib, fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                         B, V, Q, split,
+                         torch.cuda.current_stream().cuda_stream), 'split')
+    torch.cuda.synchronize()
+    want = G.scatter_add_rows_ref(contrib.cpu(), idx.cpu(), V)
+    assert torch.equal(out.cpu(), want)
 
 
 @pytest.mark.cuda

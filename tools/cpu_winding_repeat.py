@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
 """Repeat the plain (CPU) winding numbers on one input and report whether
-two identical calls ever differ, and where.
+two identical calls ever differ, and where; and read each of torch's
+intra-op threads' floating-point state as native code loads.
 
     python3 tools/cpu_winding_repeat.py [REPEATS]   # from the repo root
+    python3 tools/cpu_winding_repeat.py --fp-state [REPEATS]
 
 The input is tests/test_torch_port_kernels.py's _body() (B=2, 150 jittered
 points, 296 random faces, the points as queries), whose dispatch test saw
 two identical calls of ops/contact.winding_numbers_same_tris differ on a
-card machine's CPU. Runs REPEATS evaluations of the plain version's
+card machine's CPU (ROADMAP fault 5: 38 of 300 values, one thread's share
+at 8 threads). Runs REPEATS evaluations of the plain version's
 operations, with torch's default threads and then one thread, and prints
 which stage (numerator, denominator, atan2, the sum over faces) differs
 from the first evaluation, and where, for up to three differing calls;
 then REPEATS calls of the plain version itself, each against the first
 and against the same sums in float64 (calls off by more than WRONG, and
 which queries). Pin it to one core (`taskset -c N`) to test each core.
+
+--fp-state reads, before and after each step that loads native code (numpy
+finfo, the host library viz/native, the nvcc kernel libraries, CUDA with
+cuBLAS, cuDNN), every intra-op thread's flush-to-zero, denormals-are-zero
+and rounding mode, as that thread's own float32 arithmetic shows them
+(fp_state: one elementwise op split across the threads, chunk i on thread
+i), the main thread's MXCSR where g++ can build a reader, whether numpy
+warns that float32's smallest subnormal is zero, and whether REPEATS calls
+of the plain winding equal the first. A thread whose state differs from
+the others' is the suspect: the x86 state is per thread, and a new thread
+copies its creator's.
+
 As a pytest plugin it checks the plain version after every test
-(pytest_runtest_teardown).
+(pytest_runtest_teardown), and prints the threads' floating-point state
+wherever it changed.
 """
 
 import os
@@ -91,7 +107,127 @@ def wrong_calls(n):
     return wrong, rows
 
 
+ULP = 2.0 ** -23                  # float32's spacing at 1
+
+
+def fp_state():
+    """Per intra-op thread, what its float32 arithmetic shows: 'FTZ' (a
+    subnormal product comes out zero), 'DAZ' (a subnormal input reads as
+    zero), and the rounding mode ('near', 'up', 'down', 'zero'). One
+    elementwise op over a tensor of threads x 65536 floats is split by
+    at::parallel_for into one contiguous chunk a thread, chunk i on thread
+    i (thread 0 is the caller); results are read as integers, so the
+    reading itself does no float arithmetic."""
+    n_threads = torch.get_num_threads()
+    per = 65536                       # above the 32768-element grain
+    n = n_threads * per
+
+    def bits(x):
+        return x.view(torch.int32).reshape(n_threads, per)
+    full = torch.full
+    ftz = bits(full((n,), 2.0 ** -70) * full((n,), 2.0 ** -70)) == 0
+    tiny = full((n,), 1, dtype=torch.int32).view(torch.float32)  # 2^-149
+    daz = bits(tiny * full((n,), 2.0 ** 30)) == 0
+    one = torch.ones(n)
+    up = bits(one + full((n,), ULP / 4)) != bits(one)
+    down = bits(-one - full((n,), ULP / 4)) != bits(-one)
+    near = bits(one + full((n,), 0.75 * ULP)) != bits(one)
+    states = []
+    for t in range(n_threads):
+        mode = ('up' if up[t].all() else 'down' if down[t].all()
+                else 'near' if near[t].all() else 'zero')
+        flags = [f for f, m in (('FTZ', ftz), ('DAZ', daz)) if m[t].all()]
+        mixed = any(bool(m[t].any()) != bool(m[t].all())
+                    for m in (ftz, daz, up, down, near))
+        states.append('+'.join(flags + [mode]) + ('?' if mixed else ''))
+    return states
+
+
+_MXCSR = []
+
+
+def main_mxcsr():
+    """The calling thread's MXCSR as hex, read by a function g++ builds
+    into a temporary library on first use; None without g++ or off x86."""
+    import ctypes
+    import platform
+    import shutil
+    import subprocess
+    import tempfile
+    if not _MXCSR:
+        gxx = shutil.which('g++')
+        fn = None
+        if gxx and platform.machine() in ('x86_64', 'AMD64'):
+            with tempfile.TemporaryDirectory() as d:
+                src = os.path.join(d, 'mxcsr.cpp')
+                lib = os.path.join(d, 'mxcsr.so')
+                with open(src, 'w') as f:
+                    f.write('extern "C" unsigned tuch_mxcsr() '
+                            '{ return __builtin_ia32_stmxcsr(); }\n')
+                if subprocess.run([gxx, '-O2', '-shared', '-fPIC', '-o',
+                                   lib, src],
+                                  capture_output=True).returncode == 0:
+                    fn = ctypes.CDLL(lib).tuch_mxcsr
+                    fn.restype = ctypes.c_uint
+        _MXCSR.append(fn)
+    fn = _MXCSR[0]
+    return None if fn is None else hex(fn())
+
+
+def numpy_subnormal_warning():
+    """What numpy says of float32's smallest subnormal, from a fresh
+    finfo (its cache cleared): the warning text, or None."""
+    import warnings
+    getattr(np.finfo, '_finfo_cache', {}).clear()   # finfo warns when made
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        np.finfo(np.float32).smallest_subnormal
+    return '; '.join(str(w.message) for w in caught) or None
+
+
+def fp_report(step, repeats=20):
+    """One line: the threads' states, the main thread's MXCSR, numpy's
+    warning and whether `repeats` plain winding calls equal the first."""
+    verts, faces = body()
+    first = PC.winding_numbers_same_tris(verts, verts, faces)
+    differ = sum(not torch.equal(PC.winding_numbers_same_tris(
+        verts, verts, faces), first) for _ in range(repeats))
+    wrong, _ = wrong_calls(repeats)
+    print(f'[fp {step}] threads {fp_state()}; main MXCSR {main_mxcsr()}; '
+          f'numpy on float32 subnormals: {numpy_subnormal_warning()}; '
+          f'winding: {differ} of {repeats} calls differ from the first, '
+          f'{wrong} off float64 by more than {WRONG:g}', flush=True)
+
+
+def fp_steps(repeats) -> int:
+    """fp_report before and after each step that loads native code."""
+    fp_report('start', repeats)
+    from tuch_tpu_torch.viz import native
+    print(f'[fp] viz/native: {native.get_lib()}', flush=True)
+    fp_report('after viz/native', repeats)
+    from tuch_tpu_torch.ops import _build
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        print('[fp] no nvcc: the kernel libraries are not loaded', flush=True)
+    else:
+        _build.build()
+        for name in _build.sources():
+            _build.load(name)
+        fp_report('after the nvcc kernel libraries', repeats)
+    if torch.cuda.is_available():
+        a = torch.randn(256, 256, device='cuda')
+        (a @ a).sum().item()
+        fp_report('after CUDA and cuBLAS', repeats)
+        x = torch.randn(2, 3, 32, 32, device='cuda')
+        torch.nn.functional.conv2d(x, torch.randn(8, 3, 3, 3,
+                                                  device='cuda')).sum().item()
+        fp_report('after cuDNN', repeats)
+    return 0
+
+
 _CHECKED = []
+_STATES = []
 
 
 def pytest_runtest_teardown(item):
@@ -100,6 +236,11 @@ def pytest_runtest_teardown(item):
     test, against float64; prints the tests after which a call was off."""
     wrong, rows = wrong_calls(20)
     _CHECKED.append(bool(wrong))
+    state = fp_state()
+    if not _STATES or state != _STATES[-1]:
+        print(f'\n[cpu_winding] threads\' floating-point state after '
+              f'{item.nodeid}: {state}', flush=True)
+        _STATES.append(state)
     if wrong:
         print(f'\n[cpu_winding] after {item.nodeid}: {wrong} of 20 calls '
               f'off by more than {WRONG:g} (queries {min(rows)}-'
@@ -113,6 +254,8 @@ def pytest_sessionfinish(session):
 
 
 def main(argv) -> int:
+    if argv[:1] == ['--fp-state']:
+        return fp_steps(int(argv[1]) if argv[1:] else 20)
     repeats = int(argv[0]) if argv else 200
     verts, faces = body()
     print(f'torch {torch.__version__}, {torch.get_num_threads()} threads, '

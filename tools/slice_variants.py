@@ -2,28 +2,35 @@
 """Where kernels 2 (winding numbers) and 6 (row scatter-add) spend their
 time, by building variants of them.
 
-    python3 tools/slice_variants.py      # from the repository root, one card
+    python3 tools/slice_variants.py [--scatter]   # repository root, one card
 
 Builds tuch_tpu_torch/csrc/winding.cu as it is and variants of it with
 nvcc, one set of text substitutions per variant (every occurrence, in the
 source and its copy of csrc/solid_angle.cuh, which holds kernel 2's pair);
-kernel 6's earlier atomic form (tools/scatter_atomic.cu) and variants of
-it, its earlier designs from tools/scatter_trials.cu, and csrc/gather.cu's
-fixed-order kernel 6 as the package has it; and times them on the
-SMPLify-DC slice's inputs:
-the synthetic 6890-vertex body posed from a seed at B=64 (and B=4 for the
-scatter), its 13776 faces, and the masked nearest vertex of every vertex as
-the scatter's indices (as chip_smoke.py phase 7). Winding variants are held
-against the plain version (max abs error, in/out flips at 0.99 outside
-|wn - 0.99| < 1e-4); the scatter variants marked "wrong" compute a wrong
-answer and only their time is read; the others must equal index_add_ (the
-contributions are multiples of 2^-10, so every order of the additions gives
-the same sums). Each variant of the atomic kernel runs at several
-cluster sizes. Scatter times are the median of five CUDA-graph replays of
-50 launches (device time), beside zero-fill + index_add_; winding times the
+kernel 6 as the package has it (csrc/gather.cu) at several CTAs per batch
+item and with its steps compiled out; a draft of it that placed rows in
+order by warp-level matches (tools/scatter_buckets.cu), with
+__match_any_sync and with one ballot per key bit; the one-block counting
+sort it replaced (tools/scatter_sorted.cu) with its phases compiled out
+one at a time; the atomic form (tools/scatter_atomic.cu) and variants of
+it, and the earlier designs of tools/scatter_trials.cu; and times them on
+the SMPLify-DC slice's inputs: the synthetic 6890-vertex body posed from a
+seed at B=64 (and B=4 and 1 for the scatter), its 13776 faces, and the
+masked nearest vertex of every vertex as the scatter's indices (as
+chip_smoke.py phase 7). --scatter leaves the winding variants out.
+Winding variants are held against the plain version (max abs error,
+in/out flips at 0.99 outside |wn - 0.99| < 1e-4); the scatter variants
+marked "wrong" compute a wrong answer and only their time is read; the
+others must equal index_add_ (the contributions are multiples of 2^-10,
+so every order of the additions gives the same sums), and the package's
+kernel, the draft, the one-block form and index_add_ in torch's
+deterministic mode are also compared with the CPU's index_add_ on randn
+contributions, bit for bit. Scatter times are the median of five
+CUDA-graph replays of 50 launches (device time), beside zero-fill +
+index_add_ with torch's deterministic mode off and on; winding times the
 median of three runs of three launches (CUDA events). Prints the card's
-name and power limit first, and the scatter kernel's atomic and barrier
-instructions (cuobjdump).
+name and power limit first, the package kernel's ptxas lines, and the
+atomic kernel's atomic and barrier instructions (cuobjdump).
 """
 
 import ctypes
@@ -90,6 +97,53 @@ SCATTER = {
          '')],
     'zero fill and barrier only (wrong)': [
         ('    pass.add(ob);\n', '')],
+}
+# csrc/gather.cu's kernel 6: name -> substitutions
+SUM = '    for (int k = start[r], e = start[r + 1]; k < e; ++k) {'
+NO_SUM = (SUM, '    for (int k = 0, e = 0; k < e; ++k) {')
+NO_PLACE = ('if (g[u] >= lo && g[u] < hi) place(',
+            'if (g[u] < -1) place(')
+NO_FILL = ('      qs[start[i - lo] + atomicAdd(cur + (i - lo), 1)] = q;',
+           '      (void)0;')
+PACKAGE = {
+    'kernel': [],
+    '4 q held a thread': [('constexpr int SCATTER_HELD = 8;',
+                           'constexpr int SCATTER_HELD = 4;')],
+    '(5) the sums compiled out (wrong)': [NO_SUM],
+    '(4) and (5) compiled out (wrong)': [NO_SUM, NO_PLACE],
+    '(3) to (5) compiled out (wrong)': [NO_SUM, NO_PLACE, NO_FILL],
+}
+# tools/scatter_buckets.cu (a draft of kernel 6): name -> substitutions
+BALLOTS = """  unsigned m = __ballot_sync(0xffffffffu, valid);
+  for (int i = 0; i < bits; ++i) {
+    const bool bit = (key >> i) & 1;
+    const unsigned set = __ballot_sync(0xffffffffu, bit);
+    m &= bit ? set : ~set;
+  }
+  return valid ? m : 0u;"""
+MATCH = ("  const unsigned m = __match_any_sync(0xffffffffu, valid ? key : "
+         "-1);\n  return valid ? m : 0u;")
+BUCKETS = {
+    'as drafted (__match_any_sync)': [],
+    'one ballot per key bit': [(MATCH, BALLOTS)],
+}
+# tools/scatter_sorted.cu (kernel 6's one-block form): name -> substitutions
+ROWS = '    const int lo = r ? pos[r - 1] : 0, hi = pos[r];'
+SORTED = {
+    'as it was': [],
+    '(4) the sort compiled out': [
+        ('for (int k = lo + 1; k < hi; ++k) {', 'for (int k = hi; k < hi; '
+         '++k) {')],
+    '(5) reading no contributions (wrong)': [
+        ('const float* c = cb + 3 * slot[k];',
+         'const float c[3] = {(float)slot[k], 0.f, 0.f};'),
+        ('__ldg(c)', 'c[0]'), ('__ldg(c + 1)', 'c[1]'),
+        ('__ldg(c + 2)', 'c[2]')],
+    '(4) and (5) compiled out (wrong)': [
+        (ROWS, '    const int lo = 0, hi = 0;')],
+    '(3) to (5) compiled out (wrong)': [
+        (ROWS, '    const int lo = 0, hi = 0;'),
+        ('slot[atomicAdd(pos + i, 1)] = q;', '(void)0;')],
 }
 # tools/scatter_trials.cu: name -> -D flags
 TRIALS = {
@@ -234,19 +288,37 @@ def winding_variants(fns, verts, tris):
               flush=True)
 
 
-def scatter_variants(fns, trials, idx, V):
+def _timed_index_add(library, deterministic):
+    """(ms, how) of zero-fill + index_add_ with torch's deterministic mode
+    as asked (restored after): CUDA-graph replay, or CUDA events over
+    back-to-back calls where the deterministic form cannot be captured."""
+    mode = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        try:
+            return median_ms(library, 50, 5, graph=True), 'graph replay'
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return median_ms(library, 50, 5, graph=False), 'CUDA events'
+    finally:
+        torch.use_deterministic_algorithms(mode)
+
+
+def scatter_variants(package, buckets, sorted_fns, fns, trials, idx, V):
     from tuch_tpu_torch.ops import gather as G
     B, Q = idx.shape
     # multiples of 2^-10 below 2: every sum is exact in any order, so the
     # check below is exact whatever order the atomics take
     contrib = torch.randint(-2047, 2048, (B, Q, 3), device='cuda') / 1024.0
     want = G.scatter_add_rows_ref(contrib, idx, V)
+    randn = torch.randn(B, Q, 3, device='cuda')
+    want_randn = G.scatter_add_rows_ref(randn.cpu(), idx.cpu(), V)
     flat = (torch.arange(B, device='cuda')[:, None] * V
             + idx.long()).reshape(-1)
     src = contrib.reshape(-1, 3)
     buf = torch.empty(B * V, 3, device='cuda')
 
-    def library():
+    def library(src=src):
         buf.zero_()
         buf.index_add_(0, flat, src)
     rows = idx.cpu().numpy()
@@ -257,24 +329,61 @@ def scatter_variants(fns, trials, idx, V):
           f'targets per 32 consecutive q on average, {min(distinct)} at '
           f'least; most contributions to one row {counts.max().item()}; '
           f'rows hit {(counts > 0).sum().item()} of {B * V}', flush=True)
-    print(f'[scatter B={B}] zero_ + index_add_: '
-          f'{median_ms(library, 50, 5, graph=True):.4f} ms', flush=True)
+    for det in (False, True):
+        ms, how = _timed_index_add(library, det)
+        mode = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        library(randn.reshape(-1, 3))
+        torch.use_deterministic_algorithms(mode)
+        same = torch.equal(buf.reshape(B, V, 3).cpu(), want_randn)
+        print(f'[scatter B={B}] zero_ + index_add_, deterministic mode '
+              f'{"on" if det else "off"}: {ms:.4f} ms ({how}); on randn '
+              f'contributions bit for bit the CPU\'s index_add_ {same}',
+              flush=True)
     out = torch.empty(B, V, 3, device='cuda')
 
     def stream():   # the capturing stream inside a CUDA-graph capture
         return torch.cuda.current_stream().cuda_stream
 
-    def report(variant, call):
+    def report(variant, call, fn=None, args=()):
         ms = median_ms(call, 50, 5, graph=True)
         out.fill_(float('nan'))
         call()
         torch.cuda.synchronize()
         err = (out - want).abs().max().item()
-        print(f'[scatter B={B}] {variant}: {ms:.4f} ms, max abs err vs '
-              f'index_add_ {err:.3g}{"" if err == 0 else " (WRONG)"}',
-              flush=True)
-    report('csrc/gather.cu (fixed order)',
-           lambda: out.copy_(G.scatter_add_rows_cuda(contrib, idx, V)))
+        line = (f'[scatter B={B}] {variant}: {ms:.4f} ms, max abs err vs '
+                f'index_add_ {err:.3g}{"" if err == 0 else " (WRONG)"}')
+        if fn is not None and 'wrong' not in variant:
+            out.fill_(float('nan'))
+            check(fn(randn.data_ptr(), idx.data_ptr(), out.data_ptr(), B, V,
+                     Q, *args, stream()), variant)
+            torch.cuda.synchronize()
+            line += (f'; on randn contributions bit for bit the CPU\'s '
+                     f'index_add_ {torch.equal(out.cpu(), want_randn)}')
+        print(line, flush=True)
+    plan = G.scatter_plan(B, V, Q)
+    for variant, fn in package.items():
+        splits = [plan] if variant != 'kernel' else sorted(
+            {c for c in (1, 2, 4, 8, 16, 32, plan)
+             if G.scatter_shared_bytes(V, Q, c) <= G.MAX_SHARED})
+        for C in splits:
+            def call(fn=fn, C=C):
+                check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                         B, V, Q, C, stream()), variant)
+            tag = ' (the plan)' if C == plan else ''
+            report(f'csrc/gather.cu {variant}, {C} CTAs per item{tag} '
+                   f'({B * C} CTAs)', call, fn, (C,))
+    for variant, fn in buckets.items():
+        def call(fn=fn):
+            check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+                     V, Q, plan, stream()), variant)
+        report(f'tools/scatter_buckets.cu {variant}, {plan} CTAs per item',
+               call, fn, (plan,))
+    for variant, fn in sorted_fns.items():
+        def call(fn=fn):
+            check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+                     V, Q, stream()), variant)
+        report(f'tools/scatter_sorted.cu {variant} ({B} blocks)', call, fn)
     clusters = sorted({c for c in (1, 2, 4, 8, atomic_plan(B, V, Q)[0])
                        if B * c <= 4 * ATOMIC_BLOCKS or c == 1})
     for variant, fn in fns.items():
@@ -285,7 +394,8 @@ def scatter_variants(fns, trials, idx, V):
             def call(fn=fn, plan=plan):
                 check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(),
                          B, V, Q, *plan, stream()), variant)
-            report(f'{variant}, clusters of {C}{tag} ({B * C} blocks)', call)
+            report(f'atomic {variant}, clusters of {C}{tag} ({B * C} '
+                   f'blocks)', call)
     for variant, fn in trials.items():
         def call(fn=fn):
             check(fn(contrib.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
@@ -309,15 +419,33 @@ def sass_lines(lib: Path, kernel: str, ops=('RED', 'ATOM', 'BAR', 'UCGABAR',
                    if any(f' {op}' in line for op in ops)})
 
 
-def main() -> int:
+def ptxas_lines(log: str, kernel: str) -> str:
+    """The registers, shared memory and spills ptxas reported for
+    `kernel` in an nvcc -Xptxas -v log."""
+    lines = log.splitlines()
+    at = next((i for i, ln in enumerate(lines)
+               if 'Compiling entry function' in ln and kernel in ln), None)
+    return 'not found' if at is None else ' / '.join(
+        ln.split('info    :')[-1].strip() for ln in lines[at + 1:at + 4])
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print('slice_variants: no CUDA device', file=sys.stderr)
         return 1
+    only_scatter = '--scatter' in argv
     print(card_line(), flush=True)
     _build.build(['masked_min'])
+    scatter_args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
     with tempfile.TemporaryDirectory() as tmp:
-        wind = start(Path(tmp), CSRC / 'winding.cu',
-                     {k: v[0] for k, v in WINDING.items()})
+        wind = {} if only_scatter else start(
+            Path(tmp), CSRC / 'winding.cu',
+            {k: v[0] for k, v in WINDING.items()})
+        pack = start(Path(tmp), CSRC / 'gather.cu', PACKAGE)
+        buck = start(Path(tmp), ROOT / 'tools' / 'scatter_buckets.cu',
+                     BUCKETS)
+        sort = start(Path(tmp), ROOT / 'tools' / 'scatter_sorted.cu',
+                     SORTED)
         scat_builds = start(Path(tmp), ROOT / 'tools' / 'scatter_atomic.cu',
                             SCATTER)
         trial = start(Path(tmp), ROOT / 'tools' / 'scatter_trials.cu', TRIALS,
@@ -325,24 +453,36 @@ def main() -> int:
         wind = finish('winding', wind, 'tuch_winding_numbers',
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                       + [ctypes.c_float, ctypes.c_void_p])
+        logs = {}
+        pack = finish('gather', pack, 'tuch_scatter_add_rows',
+                      scatter_args + [ctypes.c_int, ctypes.c_void_p], logs)
+        print(f'[scatter] csrc/gather.cu kernel 6, ptxas: '
+              f'{ptxas_lines(logs.get("kernel", ""), "scatter_add_rows")}',
+              flush=True)
+        buck = finish('scatter_buckets', buck, 'tuch_scatter_add_rows',
+                      scatter_args + [ctypes.c_int, ctypes.c_void_p])
+        sort = finish('scatter_sorted', sort, 'tuch_scatter_add_rows',
+                      scatter_args + [ctypes.c_void_p], logs)
         scat = finish('scatter_atomic', scat_builds, 'tuch_scatter_add_rows',
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                       + [ctypes.c_void_p])
         for variant, (lib, _) in scat_builds.items():
-            print(f'[scatter] {variant}: SASS atomics and barriers '
+            print(f'[scatter] atomic {variant}: SASS atomics and barriers '
                   f'{sass_lines(lib, "scatter_add_rows_kernel")}',
                   flush=True)
         trial = finish('trials', trial, 'trial_scatter',
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         verts, tris, idx = slice_inputs(64)
-        winding_variants(wind, verts, tris)
+        if wind:
+            winding_variants(wind, verts, tris)
         del tris
-        scatter_variants(scat, trial, idx, verts.shape[1])
-        _, _, idx4 = slice_inputs(4)
-        scatter_variants(scat, trial, idx4, verts.shape[1])
+        V = verts.shape[1]
+        for B in (64, 4, 1):
+            scatter_variants(pack, buck, sort, scat, trial,
+                             idx if B == 64 else slice_inputs(B)[2], V)
     return 0
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -30,23 +30,45 @@
 // - Scatter, in a fixed order: every output row is the sum of its
 //   contributions in ascending q, added one after another from +0 (the
 //   order of the plain version's index_add_ on the CPU, so the two agree
-//   bit for bit), with no float atomics. The atomic form it replaces (now
-//   kept in tools/scatter_atomic.cu) added in an order that changed from
-//   run to run, and the card's training runs drifted apart with it
-//   (ROADMAP fault 4). One block of 1024 threads per batch item b (grid
-//   (1, B)) sorts item b's contributions by row in shared memory, a
-//   counting sort: (1) it counts the contributions of each row with
-//   integer atomics (the counts, unlike float sums, do not depend on the
-//   order); (2) an exclusive scan of the counts gives each row its first
-//   slot; (3) each valid q takes a slot of its row by an integer atomic
-//   (in any order); (4) a thread per row sorts its row's slots by q
-//   (insertion sort: rows are short, and the atomics hand out slots nearly
-//   in q order, so there is little to move); (5) the same thread sums the
-//   row's contributions in that order and writes the row, so every row of
-//   out is written once and nothing needs a memset. Shared memory holds
-//   V + Q + 32 ints (55,248 bytes at the body's V = Q = 6890); the wrapper
-//   refuses what does not fit in a block's 227 KB. Index arithmetic is
-//   64-bit per item base, 32-bit inside an item.
+//   bit for bit), with no float atomics, so the result repeats from run to
+//   run (ROADMAP fault 4; the atomic form is kept in tools/scatter_atomic.cu,
+//   its first fixed-order form in tools/scatter_sorted.cu). Rows run in
+//   parallel; the adds within a row may not.
+//   C CTAs of 1024 threads share batch item b (grid (C, B)); CTA c owns the
+//   rows [c S, c S + S), S = ceil(V / C), and the wrapper picks C to fill
+//   the card's SMs (ops/gather.py scatter_plan). Each CTA reads item b's
+//   whole index row (coalesced, kept in shared memory) and keeps the
+//   contributions that fall in its rows, so nothing crosses CTAs: no
+//   cluster barrier and no second pass. Every step of a CTA is parallel
+//   over its contributions or its rows; none walks them in order:
+//   (1) it loads the index row and, for its own rows, the contributions
+//       (coalesced, in q order, held in registers for step 4), and counts
+//       each row's contributions with integer atomics (the counts do not
+//       depend on the order);
+//   (2) a scan of the counts gives each row its slots;
+//   (3) each contribution takes a slot of its row by an integer atomic, in
+//       any order, and writes its q there;
+//   (4) each contribution's rank in its row is the number of the row's q
+//       below its own (it reads the row's slots: O(n) for a row of n, in
+//       parallel over the row's n contributions, where the first
+//       fixed-order form had one thread sort the row in O(n^2) steps one
+//       after another); it stages its
+//       contribution at the row's first slot + its rank, so every row's
+//       contributions lie in shared memory in ascending q;
+//   (5) a thread per row adds its staged contributions one __fadd_rn
+//       after another and writes the row, rows with none as zeros, 32
+//       consecutive rows a warp, so every row of out is written once
+//       (coalesced) and nothing needs a memset. A row's adds are one
+//       chain, so the longest row bounds the kernel: 53 at the posed B=64
+//       body, every q at worst (tests/test_torch_port_kernels.py).
+//   Shared memory: 20 Q + 8 S + 132 bytes (the staged contributions, the
+//   index row, the slots' q, each row's first slot and cursor, the scan's
+//   scratch): 165,492 at V = Q = 6890, C = 2. The wrapper refuses what the
+//   plan cannot hold. Index arithmetic is 64-bit per item base, 32-bit
+//   inside an item. tools/scatter_buckets.cu keeps a draft of this design
+//   that placed each row's contributions in order by warp-level
+//   __match_any_sync instead of counting ranks (slower on the card,
+//   tools/slice_variants.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +78,8 @@ namespace {
 constexpr int GATHER_THREADS = 256;
 constexpr int SCATTER_THREADS = 1024;
 constexpr int SCATTER_WARPS = SCATTER_THREADS / 32;
+constexpr int SCATTER_HELD = 8;    // q a thread holds from step 1 to 4
+constexpr int MAX_SPLIT = 32;      // CTAs per batch item (ops/gather.py)
 constexpr int MAX_SHARED = 232448;  // bytes a block may use (227 KB)
 constexpr int DEFAULT_SHARED = 48 * 1024;  // without the opt-in attribute
 constexpr int MAX_GRID_Y = 65535;  // the batch axis
@@ -74,11 +98,14 @@ __global__ void __launch_bounds__(GATHER_THREADS)
   out[t] = (i >= 0 && i < V) ? values[(b * V + i) * 3 + c] : 0.f;
 }
 
-// a[0, n) <- its exclusive prefix sums, by the whole block; sums[0, 32) is
-// scratch. Thread t scans a run of ceil(n / THREADS) consecutive entries
-// (a stride coprime with the 32 banks at the body's n), the runs' totals
-// are scanned by shuffles within each warp and across the warps' totals.
-__device__ __forceinline__ void exclusive_scan(int* a, int n, int* sums) {
+// The exclusive prefix sums of a[0, n), by the whole block, each handed to
+// put(k, sum before k, total); sums[0, 32) is scratch. Thread t scans a
+// run of ceil(n / THREADS) consecutive entries (a stride coprime with the
+// 32 banks at the body's n), the runs' totals are scanned by shuffles
+// within each warp and across the warps' totals.
+template <class Put>
+__device__ __forceinline__ void exclusive_scan(const int* a, int n,
+                                               int* sums, Put put) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int per = (n + SCATTER_THREADS - 1) / SCATTER_THREADS;
   const int lo = min(n, t * per), hi = min(n, lo + per);
@@ -102,62 +129,120 @@ __device__ __forceinline__ void exclusive_scan(int* a, int n, int* sums) {
     sums[lane] = w;  // inclusive over the warps
   }
   __syncthreads();
+  const int total = sums[31];
   int run = x - own + (warp ? sums[warp - 1] : 0);
   for (int k = lo; k < hi; ++k) {
     const int c = a[k];
-    a[k] = run;
+    put(k, run, total);
     run += c;
   }
 }
 
-// Grid (1, B): block b sums item b's contributions per row in ascending q
-// (see the header). Dynamic shared memory: 32 + V + Q ints.
+// Shared memory of one CTA, in bytes: the staged contributions (3 floats
+// a slot), the index row, each slot's q, each row's first slot (and the
+// end), each row's count / cursor, the scan's 32 ints. ops/gather.py
+// scatter_shared_bytes computes the same.
+__host__ __device__ constexpr int64_t scatter_shared(int64_t Q, int64_t S) {
+  return 4 * (3 * Q + Q + Q + (S + 1) + S + 32);
+}
+
+// Grid (C, B): CTA (c, b) sums item b's contributions to the rows
+// [c S, min(V, c S + S)), each in ascending q (see the header).
 __global__ void __launch_bounds__(SCATTER_THREADS)
     scatter_add_rows_kernel(const float* __restrict__ contrib,
                             const int* __restrict__ idx,
-                            float* __restrict__ out, int V, int Q) {
+                            float* __restrict__ out, int V, int Q, int S) {
+  constexpr int T = SCATTER_THREADS;
+  constexpr int H = SCATTER_HELD;
   extern __shared__ int smem[];
-  int* sums = smem;          // the scan's scratch
-  int* pos = smem + 32;      // per row: count, first slot, then end slot
-  int* slot = pos + V;       // the valid q, grouped by row
+  float* stage = reinterpret_cast<float*>(smem);           // 3 Q
+  int* ids = smem + 3 * Q;                                 // Q
+  int* qs = ids + Q;                                       // Q
+  int* start = qs + Q;                                     // S + 1
+  int* cur = start + S + 1;                                // S
+  int* sums = cur + S;                                     // 32
+  const int lo = blockIdx.x * S;
+  if (lo >= V) return;                    // the whole CTA: no rows
+  const int rows = min(S, V - lo), hi = lo + rows;
   const int t = threadIdx.x;
   const int64_t b = blockIdx.y;
   const int* ib = idx + b * Q;
   const float* cb = contrib + b * 3 * Q;
-  float* ob = out + b * 3 * V;
-  for (int r = t; r < V; r += SCATTER_THREADS) pos[r] = 0;
+  // (1) the index row, q = u T + t for u < H, its loads in flight while
+  // the counts are zeroed, with this CTA's contributions held for (4)
+  int g[H];
+  float x[H], y[H], z[H];
+#pragma unroll
+  for (int u = 0; u < H; ++u)
+    g[u] = u * T + t < Q ? __ldg(ib + u * T + t) : -1;
+  for (int r = t; r < rows; r += T) cur[r] = 0;
   __syncthreads();
-  for (int q = t; q < Q; q += SCATTER_THREADS) {          // (1) count
+#pragma unroll
+  for (int u = 0; u < H; ++u) {
+    const int q = u * T + t;
+    if (q < Q) ids[q] = g[u];
+    if (g[u] >= lo && g[u] < hi) {
+      atomicAdd(cur + (g[u] - lo), 1);
+      x[u] = __ldg(cb + 3 * q);
+      y[u] = __ldg(cb + 3 * q + 1);
+      z[u] = __ldg(cb + 3 * q + 2);
+    }
+  }
+  for (int q = H * T + t; q < Q; q += T) {  // beyond what threads hold
     const int i = __ldg(ib + q);
-    if ((unsigned)i < (unsigned)V) atomicAdd(pos + i, 1);
+    ids[q] = i;
+    if (i >= lo && i < hi) atomicAdd(cur + (i - lo), 1);
   }
   __syncthreads();
-  exclusive_scan(pos, V, sums);                           // (2) first slots
+  // (2) each row's first slot; the cursors back to 0
+  exclusive_scan(cur, rows, sums, [&](int r, int first, int n) {
+    start[r] = first;
+    cur[r] = 0;
+    if (r == rows - 1) start[rows] = n;
+  });
   __syncthreads();
-  for (int q = t; q < Q; q += SCATTER_THREADS) {          // (3) fill
-    const int i = __ldg(ib + q);
-    if ((unsigned)i < (unsigned)V) slot[atomicAdd(pos + i, 1)] = q;
+  // (3) a slot of its row for each contribution, in any order
+  for (int q = t; q < Q; q += T) {
+    const int i = ids[q];
+    if (i >= lo && i < hi)
+      qs[start[i - lo] + atomicAdd(cur + (i - lo), 1)] = q;
   }
   __syncthreads();
-  // pos[r] is now the end of row r's slots and pos[r - 1] their start
-  for (int r = t; r < V; r += SCATTER_THREADS) {
-    const int lo = r ? pos[r - 1] : 0, hi = pos[r];
-    for (int k = lo + 1; k < hi; ++k) {                   // (4) sort by q
-      const int s = slot[k];
-      int j = k;
-      for (; j > lo && slot[j - 1] > s; --j) slot[j] = slot[j - 1];
-      slot[j] = s;
+  // (4) each contribution at its row's first slot + its rank in the row
+  auto place = [&](int q, float cx, float cy, float cz) {
+    const int r = ids[q] - lo, s0 = start[r], s1 = start[r + 1];
+    int rank = 0;
+#pragma unroll 4
+    for (int k = s0; k < s1; ++k) rank += qs[k] < q;
+    float* d = stage + 3 * (s0 + rank);
+    d[0] = cx;
+    d[1] = cy;
+    d[2] = cz;
+  };
+#pragma unroll
+  for (int u = 0; u < H; ++u)
+    if (g[u] >= lo && g[u] < hi) place(u * T + t, x[u], y[u], z[u]);
+  for (int q = H * T + t; q < Q; q += T) {
+    const int i = ids[q];
+    if (i >= lo && i < hi)
+      place(q, __ldg(cb + 3 * q), __ldg(cb + 3 * q + 1),
+            __ldg(cb + 3 * q + 2));
+  }
+  __syncthreads();
+  // (5) a thread per row: its contributions in ascending q, one add after
+  // another from +0, and the row written (zeros for a row with none)
+  float* ob = out + b * 3 * V + 3 * (int64_t)lo;
+  for (int r = t; r < rows; r += T) {
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll 4
+    for (int k = start[r], e = start[r + 1]; k < e; ++k) {
+      sx = __fadd_rn(sx, stage[3 * k]);
+      sy = __fadd_rn(sy, stage[3 * k + 1]);
+      sz = __fadd_rn(sz, stage[3 * k + 2]);
     }
-    float x = 0.f, y = 0.f, z = 0.f;                      // (5) sum
-    for (int k = lo; k < hi; ++k) {
-      const float* c = cb + 3 * slot[k];
-      x = __fadd_rn(x, __ldg(c));
-      y = __fadd_rn(y, __ldg(c + 1));
-      z = __fadd_rn(z, __ldg(c + 2));
-    }
-    ob[3 * r] = x;
-    ob[3 * r + 1] = y;
-    ob[3 * r + 2] = z;
+    ob[3 * r] = sx;
+    ob[3 * r + 1] = sy;
+    ob[3 * r + 2] = sz;
   }
 }
 
@@ -179,14 +264,18 @@ extern "C" int tuch_gather_rows(const void* values, const void* idx,
   return (int)cudaGetLastError();
 }
 
-// One block per batch item; 4 (32 + V + Q) bytes of shared memory, at most
-// MAX_SHARED (ops/gather.py scatter_shared_bytes).
+// C CTAs per batch item (1 <= C <= MAX_SPLIT), each with
+// scatter_shared(Q, ceil(V / C)) bytes of shared memory, at most
+// MAX_SHARED (ops/gather.py scatter_plan picks C).
 extern "C" int tuch_scatter_add_rows(const void* contrib, const void* idx,
-                                     void* out, int B, int V, int Q,
+                                     void* out, int B, int V, int Q, int C,
                                      void* stream) {
-  const int64_t shared = 4 * ((int64_t)32 + V + Q);
-  if (B <= 0 || V <= 0 || Q <= 0 || B > MAX_GRID_Y || shared > MAX_SHARED)
+  if (B <= 0 || V <= 0 || Q <= 0 || C <= 0 || C > MAX_SPLIT ||
+      B > MAX_GRID_Y)
     return (int)cudaErrorInvalidValue;
+  const int S = (V + C - 1) / C;
+  const int64_t shared = scatter_shared(Q, S);
+  if (shared > MAX_SHARED) return (int)cudaErrorInvalidValue;
   if (shared > DEFAULT_SHARED) {  // the opt-in, once per device
     static bool opted[MAX_DEVICES] = {};
     int dev = 0;
@@ -198,10 +287,10 @@ extern "C" int tuch_scatter_add_rows(const void* contrib, const void* idx,
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) opted[dev] = true;
   }
-  scatter_add_rows_kernel<<<dim3(1, B), SCATTER_THREADS, (size_t)shared,
+  scatter_add_rows_kernel<<<dim3(C, B), SCATTER_THREADS, (size_t)shared,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(contrib), static_cast<const int*>(idx),
-      static_cast<float*>(out), V, Q);
+      static_cast<float*>(out), V, Q, S);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,10 @@ Indices are int32, as in the JAX kernels: an index outside [0, V) gathers
 a zero row and scatters nothing. The scatter kernel sums each row's
 contributions in ascending q with no float atomics, so on the card its
 result is the same from run to run and equals the plain version's on the
-CPU bit for bit. The wrappers are on the fit's host path once per body
-iteration each: they resolve their C entry once (_build.entry) and enter a
-device guard only for a tensor off the current device.
+CPU bit for bit; several CTAs share a batch item (scatter_plan). The
+wrappers are on the fit's host path once per body iteration each: they
+resolve their C entry once (_build.entry) and enter a device guard only
+for a tensor off the current device.
 """
 
 import ctypes
@@ -22,11 +23,13 @@ import torch
 from tuch_tpu_torch.ops import _build
 
 _GATHER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
 INDEX_LIMIT = 2 ** 31        # the scatter kernel indexes in 32 bits
 MAX_BATCH = 65535            # its batch is blockIdx.y
 MAX_SHARED = 232448          # csrc/gather.cu MAX_SHARED: a block's 227 KB
+MAX_SPLIT = 32               # csrc/gather.cu: CTAs per batch item at most
+H100_SMS = 132               # the plan's SM count where no card is asked
 
 
 def _flat_rows(idx: torch.Tensor, num_rows: int):
@@ -85,19 +88,45 @@ def check_sizes(B: int, Q: int, V: int, what: str):
                          f'3 B Q and 3 B V < 2^31, B <= {MAX_BATCH})')
 
 
-def scatter_shared_bytes(V: int, Q: int) -> int:
-    """Kernel 6's shared memory per block (one batch item): the scan's 32
-    ints, a count and then a slot boundary per row, a slot per
-    contribution."""
-    return 4 * (32 + V + Q)
+def scatter_shared_bytes(V: int, Q: int, split: int) -> int:
+    """Kernel 6's shared memory per CTA when `split` CTAs share a batch
+    item (csrc/gather.cu scatter_shared): a staged contribution (3 floats),
+    an index and a slot's q per contribution, a first slot and a cursor per
+    row of the CTA's ceil(V / split), the scan's 32 ints."""
+    rows = -(-V // split)
+    return 4 * (5 * Q + 2 * rows + 33)
 
 
-def check_shared(V: int, Q: int, what: str):
-    """Refuse what kernel 6's one block per batch item cannot hold."""
-    if scatter_shared_bytes(V, Q) > MAX_SHARED:
-        raise ValueError(f'{what}: V={V}, Q={Q} needs '
-                         f'{scatter_shared_bytes(V, Q)} bytes of shared '
-                         f'memory per block, more than {MAX_SHARED}')
+def scatter_plan(B: int, V: int, Q: int, sms: int = H100_SMS) -> int:
+    """CTAs per batch item for kernel 6: one CTA an SM (each holds most of
+    an SM's shared memory), as many as fill the card's `sms` SMs, at least
+    as many as the shared memory needs, at most MAX_SPLIT and V. Refuses
+    what the plan cannot hold: Q enters every CTA's shared memory whole."""
+    split = min(MAX_SPLIT, max(1, sms // max(B, 1)))
+    while scatter_shared_bytes(V, Q, split) > MAX_SHARED \
+            and split < min(MAX_SPLIT, V):
+        split += 1
+    split = max(1, min(split, V))
+    if scatter_shared_bytes(V, Q, split) > MAX_SHARED:
+        most = (MAX_SHARED - scatter_shared_bytes(V, 0, min(MAX_SPLIT, V))
+                ) // 20         # 20 bytes a contribution
+        raise ValueError(
+            f'scatter_add_rows_cuda: V={V}, Q={Q} needs '
+            f'{scatter_shared_bytes(V, Q, split)} bytes of shared memory per '
+            f'CTA even at {split} CTAs per batch item, more than '
+            f'{MAX_SHARED}: the plan holds Q <= {max(most, 0)} at this V')
+    return split
+
+
+_SMS = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count, asked once per device."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
 
 
 def _launch(fn, device: torch.device, *args) -> int:
@@ -137,12 +166,12 @@ def scatter_add_rows_cuda(contrib: torch.Tensor, idx: torch.Tensor,
     if B * Q == 0 or num_rows == 0:
         return contrib.new_zeros((B, num_rows, 3))
     check_sizes(B, Q, num_rows, 'scatter_add_rows_cuda')
-    check_shared(num_rows, Q, 'scatter_add_rows_cuda')
+    split = scatter_plan(B, num_rows, Q, _sms(contrib.device))
     out = torch.empty((B, num_rows, 3), dtype=contrib.dtype,
                       device=contrib.device)   # the kernel writes every row
     lib, fn = _build.entry('gather', 'tuch_scatter_add_rows', _SCATTER_ARGS)
     err = _launch(fn, contrib.device, contrib.data_ptr(), idx.data_ptr(),
-                  out.data_ptr(), B, num_rows, Q)
+                  out.data_ptr(), B, num_rows, Q, split)
     if err:
         _build.check(lib, err, 'scatter kernel launch')
     scatter_add_rows_cuda.launches += 1
