@@ -20,7 +20,26 @@ again from the given ones.
 
 Each part of a step runs under a torch.profiler record_function span:
 'eft_step.stop_check', 'eft_step.forward', 'eft_step.backward' and
-'eft_step.adam'.
+'eft_step.adam'. Inside them, one span a layer:
+
+  eft_step.forward.hmr        ResNet-50 and the IEF head (models/hmr)
+  eft_step.forward.smpl       models/smpl
+  eft_step.forward.loss       the EFT loss (losses/eft), which opens
+    .loss.neighbors           the contact search without gradient
+    .loss.region_pairs        and the region-pair loop
+  eft_step.backward.loss      from the start of the backward pass until the
+                              gradients of SMPL's outputs are complete
+  eft_step.backward.smpl      until those of HMR's outputs are complete
+  eft_step.backward.hmr       until the parameters' gradients are complete
+
+The forward spans open on the calling thread, always. The backward spans
+open on the autograd engine's thread (the calling thread for CPU tensors)
+as the gradient crosses each layer boundary: an identity _LayerBoundary
+on HMR's outputs, on SMPL's and on the loss, whose backward closes the
+span before it and opens the next; the last closes when the gradient call
+returns. The boundaries are put in the graph only while the profiler
+records, so an untraced step's graph has none. All spans are
+record_function ranges on the profiler's clock.
 
 EFTFitter keeps the reference's shards (--sidx/--cbs index ranges, one
 <out_dir>/<ds>_eft_train[_<sidx>].npz each); merge_shards joins them into
@@ -34,6 +53,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as autograd_profiler
 from torch.profiler import record_function
 
 from tuch_tpu_torch import constants
@@ -44,6 +64,51 @@ from tuch_tpu_torch.models.hmr import HMR, draw_dropout_masks
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
+
+
+class _BackwardSpans:
+    """The backward pass's one open layer span, as a profiler handle."""
+
+    def __init__(self):
+        self.handle = None
+
+    def open(self, name: str):
+        """Close the open span, if any, and open `name`."""
+        self.close()
+        self.handle = torch.ops.profiler._record_function_enter_new(name,
+                                                                    None)
+
+    def close(self):
+        if self.handle is not None:
+            torch.ops.profiler._record_function_exit._RecordFunction(
+                self.handle)
+            self.handle = None
+
+
+class _LayerBoundary(torch.autograd.Function):
+    """Identity on a layer's outputs. Its backward runs once the gradients
+    of all of them are complete, and opens the span of the layer below
+    (closing the one before it); the gradients pass as they are."""
+
+    @staticmethod
+    def forward(ctx, spans, name, *tensors):
+        ctx.spans, ctx.span = spans, name
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.spans.open(ctx.span)
+        return (None, None) + grads
+
+
+def _boundary(spans: Optional[_BackwardSpans], name: str, *tensors):
+    """tensors behind a _LayerBoundary that opens `name` in the backward
+    pass, or as they are where spans is None (the profiler is off)."""
+    if spans is None:
+        return tensors
+    return _LayerBoundary.apply(spans, name, *tensors)
+
 
 class EFTFitResult(NamedTuple):
     pose: torch.Tensor    # (1, 72) axis-angle
@@ -70,15 +135,22 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
     generator (a torch.Generator on hmr's device).
     """
 
-    def loss_at(img, kp, contact, masks):
-        rotmat, betas, cam = hmr(img, dropout=masks)
-        out = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
-                           pose2rot=False)
+    def loss_at(img, kp, contact, masks, spans):
+        with record_function('eft_step.forward.hmr'):
+            rotmat, betas, cam = _boundary(spans, 'eft_step.backward.hmr',
+                                           *hmr(img, dropout=masks))
+        with record_function('eft_step.forward.smpl'):
+            out = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
+                               pose2rot=False)
+            joints, vertices = _boundary(spans, 'eft_step.backward.smpl',
+                                         out.joints, out.vertices)
         cam_t = weak_perspective_to_translation(cam, constants.FOCAL_LENGTH,
                                                 img_res)
-        total, _ = eft_loss(out.joints, betas, out.vertices, cam_t, kp,
-                            contact, assets, weights, img_res=img_res,
-                            candidate_k=candidate_k)
+        with record_function('eft_step.forward.loss'):
+            total, _ = eft_loss(joints, betas, vertices, cam_t, kp,
+                                contact, assets, weights, img_res=img_res,
+                                candidate_k=candidate_k)
+        total, = _boundary(spans, 'eft_step.backward.loss', total)
         return total, rotmat.detach(), betas.detach()
 
     def fit_one(variables, img, kp, contact,
@@ -102,13 +174,21 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                 with record_function('eft_step.stop_check'):
                     if not loss() >= early_stop_loss:
                         break
+            spans = (_BackwardSpans()
+                     if autograd_profiler._is_profiler_enabled else None)
             with record_function('eft_step.forward'):
                 masks = (draw_dropout_masks(1, generator, dev)
                          if dropout is None else dropout(step))
-                total, rotmat, betas = loss_at(img, kp, contact, masks)
+                total, rotmat, betas = loss_at(img, kp, contact, masks,
+                                               spans)
             with record_function('eft_step.backward'):
-                grads = torch.autograd.grad(total, params, allow_unused=True,
-                                            materialize_grads=True)
+                try:
+                    grads = torch.autograd.grad(total, params,
+                                                allow_unused=True,
+                                                materialize_grads=True)
+                finally:
+                    if spans is not None:
+                        spans.close()
             with record_function('eft_step.adam'), torch.no_grad():
                 new = opt.step(dict(zip(names, params)),
                                dict(zip(names, grads)))

@@ -4,8 +4,14 @@ Counterpart of tuch_tpu/losses/eft.py with the same terms: the keypoint term
 in pixels, the shape term, the TUCH pull and push as per-sample means over
 exterior and interior vertices, and the geodesically masked region-to-region
 term, x100, x weights.contact and x60. The contact half runs on
-losses/smplify.self_contact_terms: kernels 4 and 2 without gradient, and
-the re-gather through gather_rows (kernel 5 forward, kernel 6 backward).
+losses/smplify's contact_neighbors (kernels 4 and 2, without gradient)
+and contact_distances (the re-gather through gather_rows: kernel 5
+forward, kernel 6 backward), then ops/contact.region_pair_min_dists.
+
+eft_loss opens two torch.profiler record_function spans, inside the EFT
+step's 'eft_step.forward.loss' (fitting/eft.py):
+'eft_step.forward.loss.neighbors' around contact_neighbors and
+'eft_step.forward.loss.region_pairs' around region_pair_min_dists.
 
 A region pair whose vertex pairs are all banned gives inf, and inf times a
 label of 0 is NaN: the JAX package's quirk, kept (ROADMAP fault 3.3).
@@ -14,8 +20,10 @@ label of 0 is NaN: the JAX package's quirk, kept (ROADMAP fault 3.3).
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
-from tuch_tpu_torch.losses.smplify import ContactAssets, self_contact_terms
+from tuch_tpu_torch.losses.smplify import (ContactAssets, contact_distances,
+                                           contact_neighbors)
 from tuch_tpu_torch.ops import contact as contact_ops
 from tuch_tpu_torch.utils.projection import perspective_projection
 
@@ -55,8 +63,10 @@ def eft_loss(joints: torch.Tensor, betas: torch.Tensor,
 
     loss_contact = joints.new_zeros(())
     if weights.contact > 0:
-        exterior, v2v_min, _ = self_contact_terms(vertices, assets, euclthres,
-                                                  candidate_k=candidate_k)
+        with record_function('eft_step.forward.loss.neighbors'):
+            exterior, argmin = contact_neighbors(vertices, assets,
+                                                 candidate_k=candidate_k)
+        v2v_min = contact_distances(vertices, argmin)
         extf = exterior.to(v2v_min.dtype)
         n_ext = extf.sum(-1).clamp(min=1.0)
         n_int = (1 - extf).sum(-1).clamp(min=1.0)
@@ -64,10 +74,11 @@ def eft_loss(joints: torch.Tensor, betas: torch.Tensor,
                 ).sum(-1) / n_ext
         push = (1.0 * torch.tanh(v2v_min / 0.04) ** 2 * (1 - extf)
                 ).sum(-1) / n_int
-        pair_min = contact_ops.region_pair_min_dists(
-            vertices, assets.region_idx_a, assets.region_idx_b,
-            assets.region_mask_a, assets.region_mask_b,
-            geomask=assets.geomask)
+        with record_function('eft_step.forward.loss.region_pairs'):
+            pair_min = contact_ops.region_pair_min_dists(
+                vertices, assets.region_idx_a, assets.region_idx_b,
+                assets.region_mask_a, assets.region_mask_b,
+                geomask=assets.geomask)
         r2r = (pair_min * gt_contact).sum(-1)
         loss_contact = (100.0 * (pull + push + 0.5 * r2r)).sum() \
             * weights.contact
