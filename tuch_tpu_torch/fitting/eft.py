@@ -18,11 +18,21 @@ step they are identity rotations and zero betas. The running BatchNorm
 statistics move during a fit and are never returned: the next fit starts
 again from the given ones.
 
+On a CUDA image HMR's forward and backward replay as two CUDA graphs
+(models/hmr.HMRGraphs, captured in the first fit of each image shape and
+precision; models/hmr.graph_engages says where), elsewhere they run
+eagerly; the numbers are the same. The returned pose and betas are
+copies, so a later fit does not change them.
+
 Each part of a step runs under a torch.profiler record_function span:
 'eft_step.stop_check', 'eft_step.forward', 'eft_step.backward' and
 'eft_step.adam'. Inside them, one span a layer:
 
-  eft_step.forward.hmr        ResNet-50 and the IEF head (models/hmr)
+  eft_step.forward.hmr        ResNet-50 and the IEF head (models/hmr),
+                              which opens
+    .hmr.graph                the replay of its CUDA graph, where
+                              HMRGraphs engages (a CUDA image); the
+                              eager forward opens none
   eft_step.forward.smpl       models/smpl
   eft_step.forward.loss       the EFT loss (losses/eft), which opens
     .loss.neighbors           the contact search without gradient
@@ -60,7 +70,7 @@ from tuch_tpu_torch import constants
 from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.losses.eft import EFTWeights, eft_loss
 from tuch_tpu_torch.losses.smplify import ContactAssets
-from tuch_tpu_torch.models.hmr import HMR, draw_dropout_masks
+from tuch_tpu_torch.models.hmr import HMR, HMRGraphs, draw_dropout_masks
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
@@ -135,10 +145,17 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
     generator (a torch.Generator on hmr's device).
     """
 
-    def loss_at(img, kp, contact, masks, spans):
+    graphs = HMRGraphs(hmr)
+
+    def loss_at(img, kp, contact, masks, spans, graphed):
         with record_function('eft_step.forward.hmr'):
+            if graphed is None:
+                out = hmr(img, dropout=masks)
+            else:
+                with record_function('eft_step.forward.hmr.graph'):
+                    out = graphed(masks)
             rotmat, betas, cam = _boundary(spans, 'eft_step.backward.hmr',
-                                           *hmr(img, dropout=masks))
+                                           *out)
         with record_function('eft_step.forward.smpl'):
             out = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
                                pose2rot=False)
@@ -158,6 +175,7 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                 dropout: Optional[Callable] = None) -> EFTFitResult:
         hmr.load_state_dict(variables)
         hmr.train()
+        graphed = graphs.bind(img)
         names, params = zip(*hmr.named_parameters())
         opt = Adam({k: p.detach() for k, p in zip(names, params)}, lr)
         dev = img.device
@@ -180,9 +198,12 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                 masks = (draw_dropout_masks(1, generator, dev)
                          if dropout is None else dropout(step))
                 total, rotmat, betas = loss_at(img, kp, contact, masks,
-                                               spans)
+                                               spans, graphed)
             with record_function('eft_step.backward'):
                 try:
+                    # on the graph path the gradients are the backward
+                    # graph's static buffers, overwritten by the next
+                    # step's replay: Adam reads them at once
                     grads = torch.autograd.grad(total, params,
                                                 allow_unused=True,
                                                 materialize_grads=True)
@@ -196,8 +217,11 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                     p.copy_(new[k])
             last = total.detach()
             step += 1
+        # rotmat and betas may be the forward graph's static outputs, which
+        # the next fit overwrites: pose is computed anew, betas copied
         pose = torch.nan_to_num(rotmat_to_aa(rotmat)).reshape(1, 72)
-        return EFTFitResult(pose=pose, betas=betas, steps=step, loss=loss())
+        return EFTFitResult(pose=pose, betas=betas.clone(), steps=step,
+                            loss=loss())
 
     return fit_one
 

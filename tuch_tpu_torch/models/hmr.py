@@ -36,6 +36,15 @@ stem stays the plain convolution: checkpoints and outputs are those of the
 stock model. ``bn_fold`` is the inference-only folded form, biased
 convolutions and no BatchNorm, whose weights fold_batchnorm makes from a
 stock state dict (``folded`` does both for a model).
+
+HMRGraphs replays the train-mode forward (image and keep-masks to rotmat,
+betas, cam) and its backward (the outputs' gradients to the parameters')
+as two CUDA graphs inside one autograd node, for callers that run the same
+image shape step after step (EFT). It engages only where graph_engages
+holds: a CUDA image, the model in train(), and no BatchNorm2d with a
+sync_group (its all_reduce is not captured); everywhere else the caller
+runs the eager forward. The math is the same on both paths: the graphs
+replay the eager launches. See HMRGraphs for the contract.
 """
 
 import math
@@ -319,6 +328,135 @@ class HMR(nn.Module):
             shape = self.decshape(xc) + shape
             cam = self.deccam(xc) + cam
         return rot6d_to_rotmat(pose).reshape(B, 24, 3, 3), shape, cam
+
+
+def graph_engages(model: HMR, device) -> bool:
+    """Whether HMRGraphs replays model's step as CUDA graphs for an image
+    on `device`: a CUDA device, model in train(), and no BatchNorm2d of it
+    with a sync_group."""
+    return (torch.device(device).type == 'cuda' and model.training
+            and not any(isinstance(m, BatchNorm2d)
+                        and m.sync_group is not None
+                        for m in model.modules()))
+
+
+class _Replay(torch.autograd.Function):
+    """One forward replay of a _GraphedStep, as an autograd node on the
+    parameters whose backward is one backward replay."""
+
+    @staticmethod
+    def forward(ctx, step, *params):
+        ctx.step = step
+        step.fwd.replay()
+        return tuple(o.detach() for o in step.outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        step = ctx.step
+        for buf, g in zip(step.grad_outs, grads):
+            buf.copy_(g)
+        step.bwd.replay()
+        return (None,) + tuple(g.detach() for g in step.grads)
+
+
+class _GraphedStep:
+    """The forward and backward graphs of one image shape and precision,
+    over static buffers: the image, the keep-masks, the outputs, their
+    gradients and the parameters' gradients."""
+
+    WARMUP = 3
+
+    def __init__(self, model: HMR, images):
+        self.images = images.clone()
+        self.keep = torch.ones(2 * N_ITER, images.shape[0], HEAD_WIDTH,
+                               dtype=torch.bool, device=images.device)
+        self.params = tuple(model.parameters())
+        with torch.cuda.device(images.device):
+            self._capture(model)
+
+    def _capture(self, model):
+        masks = [(self.keep[2 * i], self.keep[2 * i + 1])
+                 for i in range(N_ITER)]
+        # the warm-up and capture passes run the train-mode forward, which
+        # moves the running statistics: they are put back afterwards
+        stats = [(b, b.clone()) for b in model.buffers()]
+        # warm-up on a side stream, so that lazy set-up (workspaces, kernel
+        # builds) happens before the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                outs = model(self.images, dropout=masks)
+                torch.autograd.grad(outs, self.params,
+                                    [torch.zeros_like(o) for o in outs])
+        # the warm-up's graph goes before the capture, so that the
+        # capture's gradient accumulators are made on its own stream
+        del outs
+        torch.cuda.current_stream().wait_stream(side)
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.fwd):
+            outs = model(self.images, dropout=masks)
+        self.grad_outs = tuple(torch.zeros_like(o) for o in outs)
+        with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
+            self.grads = torch.autograd.grad(outs, self.params,
+                                             self.grad_outs)
+        # kept detached: the capture's autograd graph goes, and with it its
+        # gradient accumulators, so that the replays' are made on the
+        # stream that replays
+        self.outs = tuple(o.detach() for o in outs)
+        with torch.no_grad():
+            for b, saved in stats:
+                b.copy_(saved)
+
+    def __call__(self, masks):
+        torch.stack([m for pair in masks for m in pair], out=self.keep)
+        with torch.cuda.device(self.images.device):
+            return _Replay.apply(self, *self.params)
+
+
+class HMRGraphs:
+    """HMR's train-mode step as CUDA graphs, one forward and one backward
+    graph per image shape, dtype, device and TF32 setting (cuDNN's and
+    the matmuls'), captured on first use.
+
+    bind(images) -> None where graph_engages(model, images.device) is
+    False: the caller runs model(images, dropout=masks) as ever. Else it
+    copies images into the static image buffer of their graphs (capturing
+    them first if new) and returns step(masks) -> (rotmat, betas, cam),
+    the forward of model(images, dropout=masks) for draw_dropout_masks'
+    layout: a copy of the masks into their static buffer and one replay.
+    The backward of those outputs is one replay too, and gives the
+    gradients of model's parameters (torch.autograd.grad(loss,
+    parameters) as eagerly). Each forward must be followed by its
+    backward before the next forward.
+
+    The outputs and the parameters' gradients are static buffers that the
+    next replay overwrites: a caller keeps what it needs past that by
+    copying it. The graphs read model's parameters and BatchNorm
+    statistics where they are, so those may be changed in place only
+    (load_state_dict, copy_); a step moves the running statistics as the
+    eager one does. Capture runs the forward and backward a few times and
+    leaves the statistics as it found them. Nothing inside draws random
+    numbers: the masks come from the caller.
+    """
+
+    def __init__(self, model: HMR):
+        self.model = model
+        self._steps = {}
+
+    def bind(self, images):
+        if not graph_engages(self.model, images.device):
+            return None
+        key = (tuple(images.shape), images.dtype, images.device,
+               torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32)
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = _GraphedStep(self.model, images)
+        else:
+            step.images.copy_(images)
+        return step
 
 
 @torch.no_grad()
