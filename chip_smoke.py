@@ -9,12 +9,15 @@ exit, no result line) if any check fails:
   1. build   the CUDA kernels from tuch_tpu_torch/csrc/, one nvcc each, in
              parallel, with each kernel's ptxas line;
   2. kernel  the attention kernel against its plain PyTorch version on the
-             card, fp32 and bf16, at the serving shapes and at N on both
-             sides of its tile edges (1 to 300, head dims 32 and 64), and
-             its time at B=64 beside the plain version's, a library call's
-             and the card's bound (CUDA-graph replays: device time only);
-             attention's gradient through the kernel against the plain
-             version's at the ViT-S/16 B=64 shape in both dtypes, and one
+             card, fp32 and bf16, at the serving shapes, at N on both
+             sides of its tile edges (1 to 300, head dims 32 and 64) and
+             at ViTPose-H's shape (HMR 2.0's backbone: N 192, C 1280, 16
+             heads of 80) at B=1 and 64, and its time at ViT-S/16's B=64
+             and ViTPose-H's B=1 (the EFT step's) and B=64 beside the
+             plain version's, a library call's and the card's bound
+             (CUDA-graph replays: device time only); attention's gradient
+             through the kernel against the plain version's at the
+             ViT-S/16 B=64 shape and ViTPose-H's B=1 in both dtypes, and one
              ViT-S/16 backward whose qkv weight gradients equal those with
              the plain version in the kernel's place;
   3. serve   the HTTP server with the ViT-S/16 backbone at full width on the
@@ -191,7 +194,9 @@ processes:
 13 and 14 alone (~2.5 minutes, against the whole smoke's ~15),
 `--offline` runs phases 1, 7, 17 and 18 alone (~2.5 minutes) and
 `--parallel` runs phases 1 and 19-21 alone (~5 minutes); they print no
-result lines. Weights and bodies are random from fixed seeds. The last
+result lines. `--kernels` runs phases 1 and 2 alone and prints kernel 1's
+rows of the kernel summary (their launches null: no phase it runs
+counts them). Weights and bodies are random from fixed seeds. The last
 two lines of standard output are the kernel summary and {"ok": true,
 "device": {...}} as JSON; the line before them is the card's name and
 power limit from nvidia-smi.
@@ -224,6 +229,8 @@ TF32_FLOPS = 495e12              # the fp32 attention kernel runs 3xTF32
 VIT_S16 = dict(N=196, C=384, H=6)   # 224x224 / 16x16 patches
 VIT_T8 = dict(N=64, C=64, H=2)      # 64x64 / 8x8 patches
 ODD = dict(N=197, C=384, H=6)       # a ragged last tile of queries and keys
+# HMR 2.0's backbone: a 256x192 crop / 16x16 patches, 16 heads of 80
+VITPOSE_H = dict(N=192, C=1280, H=16)
 # N on both sides of the kernel's tile edges (16 query rows per warp, 64 per
 # block, key tiles of 32 (fp32) or 64 (bf16)), at head dims 64 and 32
 EDGES = [dict(N=n, C=c, H=2) for n in (1, 15, 16, 17, 64, 196, 197, 300)
@@ -468,7 +475,8 @@ def phase_kernels(results):
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {}
-    shapes = [(s, B) for s in (VIT_S16, VIT_T8, ODD) for B in (1, 64)]
+    shapes = [(s, B) for s in (VIT_S16, VIT_T8, ODD, VITPOSE_H)
+              for B in (1, 64)]
     shapes += [(s, 3) for s in EDGES]
     for dtype in (torch.float32, torch.bfloat16):
         for shape, B in shapes:
@@ -484,9 +492,17 @@ def phase_kernels(results):
                   flush=True)
             check(err <= TOL[dtype] and got.shape == want.shape,
                   f'mha {dtype} B={B} N={N}: err {err}')
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-    B, N, C, H = 64, VIT_S16['N'], VIT_S16['C'], VIT_S16['H']
-    for dtype in (torch.float32, torch.bfloat16):
+            hd = 'hd80' if C // H == 80 else 'hd32/64'
+            worst[hd, dtype] = max(worst.get((hd, dtype), 0.0), err)
+    # results: ViT-S/16's B=64 under the dtype; ViTPose-H's under
+    # ('hd80', B, dtype), each with the largest error at its head dims
+    timed = [(dtype, 64, VIT_S16) for dtype in (torch.float32,
+                                                torch.bfloat16)]
+    timed += [(('hd80', B, dtype), B, VITPOSE_H) for B in (1, 64)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for key, B, shape in timed:
+        dtype = key if isinstance(key, torch.dtype) else key[2]
+        N, C, H = shape['N'], shape['C'], shape['H']
         x = torch.randn(B, N, 3 * C, device=dev, generator=gen).to(dtype)
         q, k, v = x.view(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
         ms = graph_ms(lambda: A.mha_cuda(x, H))
@@ -498,12 +514,41 @@ def phase_kernels(results):
               f'sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms '
               f'({bound_by}, {route}), {bound_ms / ms:.1%} of bound '
               f'(CUDA-graph replay, device time)', flush=True)
-        results[dtype] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              max_abs_err=worst[dtype])
+        hd = 'hd80' if C // H == 80 else 'hd32/64'
+        results[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            max_abs_err=worst[hd, dtype])
     for dtype in (torch.float32, torch.bfloat16):
-        _hold_mha_grad(B, N, C, H, dtype, gen)
+        _hold_mha_grad(64, VIT_S16['N'], VIT_S16['C'], VIT_S16['H'], dtype,
+                       gen)
+        _hold_mha_grad(1, VITPOSE_H['N'], VITPOSE_H['C'], VITPOSE_H['H'],
+                       dtype, gen)
     _hold_vit_grad(gen)
+
+
+def mha_rows(kernels, launches):
+    """Kernel 1's rows of the kernel summary: ViT-S/16 at B=64 with its
+    launches per serving forward, and ViTPose-H at B=1 (HMR 2.0's EFT step;
+    launches None: no phase here runs HMR 2.0, the benchmark's
+    fit.hmr2_vith16.eft_b1 counts them)."""
+    rows = []
+    for name, dt in (('mha', 'float32'), ('mha_bf16', 'bfloat16')):
+        dtype = getattr(torch, dt)
+        rows.append(dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',
+                         replaces='tuch_tpu/ops/attention_pallas.py:70',
+                         launches=launches.get(f'vit_s16 {dt}'),
+                         **kernels[dtype]))
+        rows.append(dict(rows[-1], name=name.replace('mha', 'mha_hd80'),
+                         launches=None, **kernels['hd80', 1, dtype]))
+    return rows
+
+
+def kernel_summary(rows):
+    """The kernel summary line's object."""
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+    return {'kernels': [{key: dict(row, route='cuda')[key] for key in keys}
+                        for row in rows]}
 
 
 def _hold_mha_grad(B, N, C, H, dtype, gen):
@@ -4226,6 +4271,9 @@ def main(argv=None) -> int:
     p.add_argument('--parallel', action='store_true',
                    help='phases 1 and 19-21 (the device mesh) alone, with '
                         'no result lines')
+    p.add_argument('--kernels', action='store_true',
+                   help='phases 1 and 2 (kernel 1) alone; prints kernel '
+                        "1's rows of the kernel summary")
     p.add_argument('--rank_job', help=argparse.SUPPRESS)
     p.add_argument('--rank_worker', type=int, help=argparse.SUPPRESS)
     p.add_argument('--job_dir', help=argparse.SUPPRESS)
@@ -4252,6 +4300,15 @@ def main(argv=None) -> int:
         parallel_phases(card)
         print(f'chip_smoke --parallel: every check passed in '
               f'{time.perf_counter() - t0:.1f} s', flush=True)
+        return 0
+    if args.kernels:             # against plain versions in full fp32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = {}
+        phase_build()
+        phase_kernels(kernels)
+        print(card, flush=True)
+        print(json.dumps(kernel_summary(mha_rows(kernels, {}))), flush=True)
         return 0
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
@@ -4328,11 +4385,7 @@ def main(argv=None) -> int:
     parallel_phases(card, kernels, launches)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
-    rows = [dict(name=name, source='tuch_tpu_torch/csrc/mha.cu',
-                 replaces='tuch_tpu/ops/attention_pallas.py:70',
-                 launches=launches[f'vit_s16 {dt}'],
-                 **kernels[getattr(torch, dt)])
-            for name, dt in (('mha', 'float32'), ('mha_bf16', 'bfloat16'))]
+    rows = mha_rows(kernels, launches)
     for name, src, rep in (
             ('winding', 'winding.cu', 'contact_pallas.py:85'),
             ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),
@@ -4344,12 +4397,8 @@ def main(argv=None) -> int:
         rows.append(dict(name=name, source=f'tuch_tpu_torch/csrc/{src}',
                          replaces=f'tuch_tpu/ops/{rep}',
                          launches=launches[name], **kernels[name]))
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    summary = {'kernels': [{key: dict(row, route='cuda')[key]
-                            for key in keys} for row in rows]}
     print(card, flush=True)
-    print(json.dumps(summary), flush=True)
+    print(json.dumps(kernel_summary(rows)), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kinds,
         'count': torch.cuda.device_count()}}), flush=True)

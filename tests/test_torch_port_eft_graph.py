@@ -15,7 +15,11 @@ betas, and the running statistics after each fit, bit for bit; image 1's
 result unchanged after image 2 is fitted; one 'eft_step.forward.hmr.graph'
 span a step; no warning of a gradient accumulator on another stream (the
 capture's side streams); EFTFitter.fit() leaves the start's parameters and
-statistics; and one ViT-S/16 fit, graph against eager.
+statistics; and one ViT-S/16 fit, graph against eager. HMR 2.0
+(models/hmr2) at toy size and at its published widths (ViT-H/16 at 256
+px), two images of 3 steps on its drop-path masks, graph against eager bit
+for bit; its kernel-1 launches counted at each replay (ops/attention
+.mha_cuda.launches) equal the trace's kernel-1 operations.
 """
 
 import types
@@ -60,9 +64,9 @@ def fit_inputs(num_classes, img_res, device, seed):
     return [x.to(device) for x in (img, kp, contact)]
 
 
-def drawn_masks(device, seed, steps=STEPS):
+def drawn_masks(device, seed, steps=STEPS, draw=H.draw_dropout_masks):
     g = torch.Generator(device=device).manual_seed(seed)
-    return [H.draw_dropout_masks(1, g, device) for _ in range(steps)]
+    return [draw(1, g, device) for _ in range(steps)]
 
 
 def eager_fit(r, start, img, kp, contact, masks, img_res):
@@ -200,14 +204,25 @@ def card():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def bits_digest(t):
+    """A position-weighted sum of t's 32-bit patterns (int64, wrapping): a
+    stand-in for a copy where copies of every step would not fit the card
+    (ViT-H's 670M floats); equal bits give equal digests."""
+    v = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+    w = torch.arange(1, v.numel() + 1, dtype=torch.int64, device=v.device)
+    return (v * (w * 2654435761 + 97)).sum()
+
+
 class Recorder:
     """Each step's loss, gradients and updated parameters of the fits run
     while it is installed, by wrapping fitting/eft's eft_loss and Adam;
-    copies, taken when they are made."""
+    copies, taken when they are made (with digest, bits_digest of each
+    instead)."""
 
-    def __init__(self, mp):
+    def __init__(self, mp, digest=False):
         self.steps = []
         rec, loss_fn, base = self, PEF.eft_loss, PEF.Adam
+        keep = bits_digest if digest else torch.clone
 
         def recorded_loss(*args, **kwargs):
             total, parts = loss_fn(*args, **kwargs)
@@ -218,19 +233,19 @@ class Recorder:
             def step(self, params, grads):
                 out = super().step(params, grads)
                 rec.steps[-1].update(
-                    grads={k: g.clone() for k, g in grads.items()},
-                    params={k: v.clone() for k, v in out.items()})
+                    grads={k: keep(g) for k, g in grads.items()},
+                    params={k: keep(v) for k, v in out.items()})
                 return out
 
         mp.setattr(PEF, 'eft_loss', recorded_loss)
         mp.setattr(PEF, 'Adam', RecordedAdam)
 
 
-def card_fits(r, dev, img_res, images, graph):
+def card_fits(r, dev, img_res, images, graph, digest=False):
     """Fit `images` (seeds) one after another from r.hmr's start with the
     graphs on or off: results, copies of each result as it left its fit,
-    the buffers after each fit, every step's record, the graph spans and
-    the warnings raised."""
+    the buffers after each fit, every step's record (Recorder's, digests
+    with digest), the graph spans and the warnings raised."""
     start = {k: v.detach().clone() for k, v in r.hmr.state_dict().items()}
     out = dict(results=[], copies=[], buffers=[], spans=0)
     with pytest.MonkeyPatch.context() as mp, \
@@ -238,12 +253,13 @@ def card_fits(r, dev, img_res, images, graph):
         warnings.simplefilter('always')
         if not graph:
             mp.setattr(H, 'graph_engages', lambda model, device: False)
-        rec = Recorder(mp)
+        rec = Recorder(mp, digest)
         fit = PEF.make_eft_fit_fn(r.hmr, r.smpl, r.contact, EFTWeights(),
                                   max_steps=STEPS, lr=LR, img_res=img_res)
         for seed in images:
             ins = fit_inputs(len(r.contact_classes), img_res, dev, seed)
-            masks = drawn_masks(dev, 100 + seed)
+            masks = drawn_masks(dev, 100 + seed, draw=getattr(
+                r.hmr, 'draw_masks', H.draw_dropout_masks))
             with profile(activities=[ProfilerActivity.CPU]) as prof:
                 res = fit(start, *ins, dropout=lambda i: masks[i])
             torch.cuda.synchronize()
@@ -371,3 +387,61 @@ def test_vit_graph_fit_matches_eager_on_card(card):
         assert all_equal(a['params'], b['params'])
     a, b = eager['results'][0], graph['results'][0]
     assert torch.equal(a.pose, b.pose) and torch.equal(a.betas, b.betas)
+
+
+HMR2_RES = {'hmr2_toy': 64, 'hmr2_vith16': 256}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('backbone', sorted(HMR2_RES))
+def test_hmr2_graph_fit_matches_eager_on_card(card, backbone):
+    torch.manual_seed(0)
+    res = HMR2_RES[backbone]
+    r = rt.build_runtime(device=card, synthetic=True, num_verts=170,
+                         backbone=backbone, with_contact=True,
+                         dtype='float32', img_res=res)
+    digest = backbone == 'hmr2_vith16'
+    eager = card_fits(r, card, res, (1, 2), graph=False, digest=digest)
+    graph = card_fits(r, card, res, (1, 2), graph=True, digest=digest)
+    assert graph['spans'] == 2 * STEPS and eager['spans'] == 0
+    assert len(eager['steps']) == len(graph['steps']) == 2 * STEPS
+    for a, b in zip(eager['steps'], graph['steps']):
+        assert torch.equal(a['loss'], b['loss'])
+        assert all_equal(a['grads'], b['grads'])
+        assert all_equal(a['params'], b['params'])
+    for a, b in zip(eager['results'], graph['results']):
+        assert torch.equal(a.pose, b.pose) and torch.equal(a.betas, b.betas)
+    assert not [w for w in graph['warnings'] if 'AccumulateGrad' in w]
+
+
+@pytest.mark.cuda
+def test_kernel1_launches_count_each_replay_on_card(card):
+    """The capture's kernel-1 launches count once a replay, not at capture:
+    the first fit counts its eager warm-up passes and its replays, the
+    second its replays only, as many as the trace's kernel-1 operations."""
+    from tuch_tpu_torch.ops import attention as A
+    torch.manual_seed(0)
+    r = rt.build_runtime(device=card, synthetic=True, num_verts=170,
+                         backbone='hmr2_toy', with_contact=True,
+                         dtype='float32', img_res=64)
+    depth = r.hmr.depth
+    start = {k: v.detach().clone() for k, v in r.hmr.state_dict().items()}
+    ins = fit_inputs(len(r.contact_classes), 64, card, 4)
+    masks = drawn_masks(card, 9, draw=r.hmr.draw_masks)
+    fit = PEF.make_eft_fit_fn(r.hmr, r.smpl, r.contact, EFTWeights(),
+                              max_steps=STEPS, lr=LR, img_res=64)
+    ran, captured = A.mha_cuda.launches, A.mha_cuda.captured
+    fit(start, *ins, dropout=lambda i: masks[i])
+    torch.cuda.synchronize()
+    assert A.mha_cuda.captured - captured == depth
+    assert A.mha_cuda.launches - ran == \
+        (H._GraphedStep.WARMUP + STEPS) * depth
+    ran = A.mha_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fit(start, *ins, dropout=lambda i: masks[i])
+        torch.cuda.synchronize()
+    traced = sum(1 for e in prof.profiler.kineto_results.events()
+                 if 'mha_fwd_kernel' in e.name()
+                 and e.device_type() == torch.autograd.DeviceType.CUDA)
+    assert A.mha_cuda.launches - ran == traced == STEPS * depth

@@ -31,10 +31,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (B, N, C, heads): vit_s16 at 224 (unaligned N), an aligned toy shape, an
 # odd N whose last query and key tiles are ragged, and vit_t8 at 64; then
 # N on both sides of the kernel's tile edges (16 query rows per warp, 64
-# per block, key tiles of 32 or 64) at head dims 64 and 32
+# per block, key tiles of 32 or 64) at head dims 64 and 32; then head dim
+# 80 at ViTPose-H's width (16 heads of 80; HMR 2.0's N is 192)
 EDGE_N = (1, 15, 16, 17, 64, 196, 197, 300)
 SHAPES = [(2, 196, 384, 6), (3, 128, 64, 2), (2, 197, 384, 6),
           (4, 64, 64, 2)] + [(2, n, c, 2) for n in EDGE_N for c in (128, 64)]
+SHAPES += [(B, n, 1280, 16) for B in (1, 4) for n in (1, 63, 192, 197)]
 
 
 def _qkv(B, N, C, dtype=torch.float32, device='cpu'):
@@ -505,7 +507,8 @@ def test_mha_kernel_matches_plain_version_on_card(cuda_device, shape, dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize('shape', [(2, 196, 384, 6), (3, 17, 64, 2)])
+@pytest.mark.parametrize('shape', [(2, 196, 384, 6), (3, 17, 64, 2),
+                                   (1, 192, 1280, 16)])
 def test_mha_gradient_through_the_kernel_on_card(cuda_device, shape, dtype,
                                                  tol):
     """fused_mha with a gradient: kernel 1 forward (one launch), the

@@ -64,7 +64,7 @@ def build(args) -> rt.Runtime:
     return rt.build_runtime(
         device=resolve_device(args.device), synthetic=args.synthetic or None,
         num_verts=args.synthetic_num_verts or None, backbone=args.backbone,
-        checkpoint=args.checkpoint, with_contact=True)
+        checkpoint=args.checkpoint, with_contact=True, img_res=args.img_res)
 
 
 def run(args, runtime: rt.Runtime) -> DemoOutput:

@@ -50,7 +50,7 @@ def _gendered_smpl(neutral, device):
 def run(args):
     """Evaluate as main does; returns the report dict."""
     from tuch_tpu_torch import config as cfg
-    from tuch_tpu_torch import resolve_device
+    from tuch_tpu_torch import constants, resolve_device
     from tuch_tpu_torch import runtime as rt
     from tuch_tpu_torch.data.dataset import TuchDataset, synthetic_db
     from tuch_tpu_torch.eval.evaluate import run_evaluation
@@ -66,7 +66,8 @@ def run(args):
     runtime = rt.build_runtime(
         device=device, synthetic=args.synthetic or None,
         num_verts=args.synthetic_num_verts or None, backbone=args.backbone,
-        checkpoint=args.checkpoint, bn_fold=args.bn_fold)
+        checkpoint=args.checkpoint, bn_fold=args.bn_fold,
+        img_res=constants.IMG_RES)
     cnc = None
     if args.synthetic:
         img_dir = os.path.join('out', 'synthetic_eval')
@@ -119,8 +120,12 @@ def main(argv=None):
                    help='fold eval-mode BatchNorm into the ResNet-50 conv '
                         'weights (the same function to float32 rounding)')
     p.add_argument('--backbone', default='resnet50',
-                   help='regressor backbone: resnet50 (reference) or a '
-                        'models/vit.py config name (vit_s16, ...)')
+                   help='regressor backbone: resnet50 (reference), a '
+                        'models/vit.py config name (vit_s16, ...) or '
+                        'hmr2_vith16 (HMR 2.0, 4D-Humans: ViTPose-H/16 and '
+                        'a transformer-decoder head, built here for the '
+                        '224 crops eval reads; seeded weights until its '
+                        'released checkpoint is in the repository)')
     p.add_argument('--paper_context', action='store_true',
                    help='print UNVERIFIED model-memory paper numbers as '
                         'context (advisory only, never a gate)')

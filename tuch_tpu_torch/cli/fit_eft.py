@@ -47,6 +47,13 @@ def parse_args(argv=None):
     p.add_argument('--no_pin_memory', dest='pin_memory',
                    action='store_false')
     p.add_argument('--img_res', type=int, default=224)
+    p.add_argument('--backbone', default='resnet50',
+                   help='regressor backbone: resnet50 (reference), a '
+                        'models/vit.py config name (vit_s16, ...) or '
+                        'hmr2_vith16 (HMR 2.0, 4D-Humans: ViTPose-H/16 and '
+                        'a transformer-decoder head, built for --img_res '
+                        'crops, published 256; seeded weights until its '
+                        'released checkpoint is in the repository)')
     p.add_argument('--out_dir', default='out/eft')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--synthetic', action='store_true')
@@ -88,7 +95,8 @@ def _run(args):
     rt.deterministic(dev)
     runtime = rt.build_runtime(
         device=dev, synthetic=args.synthetic or None,
-        num_verts=args.synthetic_num_verts or None, with_contact=True)
+        num_verts=args.synthetic_num_verts or None, with_contact=True,
+        backbone=args.backbone, img_res=args.img_res)
     if args.pretrained_checkpoint:
         from tuch_tpu_torch.train.checkpoint import load_variables
         load_variables(args.pretrained_checkpoint, runtime.hmr)

@@ -92,7 +92,7 @@ class TuchPredictor:
         runtime = rt.build_runtime(
             device=self.device, synthetic=synthetic or None,
             num_verts=num_verts, backbone=backbone, checkpoint=checkpoint,
-            dtype=dtype, bn_fold=bn_fold)
+            dtype=dtype, bn_fold=bn_fold, img_res=img_res)
         # the backbone's weights cast to dtype once here, not per forward
         self.hmr = hmr_mod.store_compute_weights(runtime.hmr)
         self.smpl = runtime.smpl
@@ -372,8 +372,12 @@ def main(argv=None):
                    help='max time the batcher waits for more requests '
                         'after the first arrives')
     p.add_argument('--backbone', default='resnet50',
-                   help='regressor backbone: resnet50 (reference) or a '
-                        'models/vit.py config name (vit_s16, ...)')
+                   help='regressor backbone: resnet50 (reference), a '
+                        'models/vit.py config name (vit_s16, ...) or '
+                        'hmr2_vith16 (HMR 2.0, 4D-Humans: ViTPose-H/16 and '
+                        'a transformer-decoder head, built for --img_res '
+                        'crops, published 256; seeded weights until its '
+                        'released checkpoint is in the repository)')
     p.add_argument('--bn_fold', action='store_true',
                    help='fold eval-mode BatchNorm into the ResNet-50 conv '
                         'weights after the checkpoint is loaded (the same '

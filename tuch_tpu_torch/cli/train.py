@@ -56,7 +56,7 @@ def build(options, runtime=None):
             backbone=options.backbone,
             checkpoint=options.pretrained_checkpoint, with_contact=True,
             with_hd=options.use_hd, dtype=options.compute_dtype,
-            stem_s2d=options.stem_s2d)
+            stem_s2d=options.stem_s2d, img_res=options.img_res)
     P = len(runtime.contact_classes)
     if options.synthetic:
         img_dir = os.path.join(options.log_dir, 'synthetic_images')

@@ -95,6 +95,9 @@ class SMPLifyDemoConfig:
     contact_in_the_loop_loss_weight: float = 2000.0
     synthetic: bool = False
     synthetic_num_verts: int = 0
+    # resnet50, a models/vit.py config (vit_s16, ...) or hmr2_vith16 (HMR
+    # 2.0, 4D-Humans; built for img_res crops; seeded weights until its
+    # released checkpoint is in the repository)
     backbone: str = 'resnet50'
     num_images: int = 4
     # torch device; None = CUDA (raises without a card)
@@ -182,6 +185,9 @@ class TrainConfig:
     # the JAX package's space-to-depth stem, a TPU layout of the same
     # function: accepted, and the plain 7x7 stem here (models/hmr)
     stem_s2d: bool = False
+    # resnet50, a models/vit.py config (vit_s16, ...) or hmr2_vith16 (HMR
+    # 2.0, 4D-Humans; built for img_res crops; seeded weights until its
+    # released checkpoint is in the repository)
     backbone: str = 'resnet50'
     seed: int = 0
     # torch device ('cuda' raises without a card; 'cpu' to run there)

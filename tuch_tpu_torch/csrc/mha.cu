@@ -7,7 +7,8 @@
 // ((i3 * H) + h) * hd + d holds component i3 (q, k, v) of head h.
 //
 //   qkv (B, N, 3C) row-major, float32 or bfloat16  ->  out (B, N, C)
-//   any N >= 1; head dim hd = C / H of 32 or 64
+//   any N >= 1; head dim hd = C / H of 32, 64 or 80 (80: ViTPose-H,
+//   1280 wide over 16 heads, HMR 2.0's backbone)
 //
 // What bounds it on this card. Per launch it does 4 B H N^2 hd flops and must
 // move (3C + C) N B itemsize bytes. At the ViT-S/16 serving shape (N = 196,
@@ -61,6 +62,14 @@
 // index of each m16n8k8 is permuted (position t <-> element 2t, t + 4 <->
 // 2t + 1), which the sum does not see: Q and K fragments load as float2,
 // and the fp32 logits accumulator is the A operand of P V as it stands.
+//
+// hd 80 is the same template: 10 k-steps of m16n8k8 (fp32) or 5 of
+// m16n8k16 (bf16) in S, 10 n-tiles of 8 dims in O (5 ldmatrix.x4.trans
+// pairs in bf16). Its padded rows (88 elements, 84 floats for fp32 V) keep
+// 16-byte alignment and conflict-free fragment loads as hd 64's (72, 68)
+// do: fp32 Q and K row r starts at bank 24 r (mod 32), V rows 2t and
+// 2t + 1 at 8 t and 8 t + 20. Shared memory per block: 66,560 B (fp32)
+// and 56,320 B (bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -441,9 +450,9 @@ cudaError_t launch(const void* qkv, void* out, int B, int N, int H,
 }  // namespace
 
 // qkv, out: device pointers, 16-byte aligned; dtype 0 = float32,
-// 1 = bfloat16; head_dim 32 or 64; stream: a cudaStream_t. Allocates nothing
-// and does not synchronise. Returns the cudaError_t of the launch (0 on
-// success).
+// 1 = bfloat16; head_dim 32, 64 or 80; stream: a cudaStream_t. Allocates
+// nothing and does not synchronise. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int tuch_mha_forward(const void* qkv, void* out, int B, int N,
                                 int heads, int head_dim, int dtype,
                                 float scale, void* stream) {
@@ -454,10 +463,14 @@ extern "C" int tuch_mha_forward(const void* qkv, void* out, int B, int N,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0 && head_dim == 64) {
+  if (dtype == 0 && head_dim == 80) {
+    err = launch<float, 80>(qkv, out, B, N, heads, scale, s);
+  } else if (dtype == 0 && head_dim == 64) {
     err = launch<float, 64>(qkv, out, B, N, heads, scale, s);
   } else if (dtype == 0 && head_dim == 32) {
     err = launch<float, 32>(qkv, out, B, N, heads, scale, s);
+  } else if (dtype == 1 && head_dim == 80) {
+    err = launch<__nv_bfloat16, 80>(qkv, out, B, N, heads, scale, s);
   } else if (dtype == 1 && head_dim == 64) {
     err = launch<__nv_bfloat16, 64>(qkv, out, B, N, heads, scale, s);
   } else if (dtype == 1 && head_dim == 32) {

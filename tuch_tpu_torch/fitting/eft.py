@@ -140,12 +140,15 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
     variables: the start, a state dict of hmr (parameters and BatchNorm
     statistics); img (1, H, W, 3) normalised, kp (1, 49, 3) in [-1, 1]
     with confidences, contact (1, P) region-pair labels, tensors on hmr's
-    device. dropout: a function step -> the head's keep-masks
-    (models/hmr.draw_dropout_masks' layout); None draws them from
-    generator (a torch.Generator on hmr's device).
+    device. dropout: a function step -> the model's keep-masks
+    (models/hmr.draw_dropout_masks' layout; HMR 2.0's drop-path masks);
+    None draws them from generator (a torch.Generator on hmr's device),
+    by hmr.draw_masks where the model has one (HMR 2.0), else
+    draw_dropout_masks.
     """
 
     graphs = HMRGraphs(hmr)
+    draw_masks = getattr(hmr, 'draw_masks', None)
 
     def loss_at(img, kp, contact, masks, spans, graphed):
         with record_function('eft_step.forward.hmr'):
@@ -195,7 +198,8 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
             spans = (_BackwardSpans()
                      if autograd_profiler._is_profiler_enabled else None)
             with record_function('eft_step.forward'):
-                masks = (draw_dropout_masks(1, generator, dev)
+                masks = ((draw_masks or draw_dropout_masks)(1, generator,
+                                                            dev)
                          if dropout is None else dropout(step))
                 total, rotmat, betas = loss_at(img, kp, contact, masks,
                                                spans, graphed)
@@ -213,8 +217,8 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
             with record_function('eft_step.adam'), torch.no_grad():
                 new = opt.step(dict(zip(names, params)),
                                dict(zip(names, grads)))
-                for k, p in zip(names, params):
-                    p.copy_(new[k])
+                torch._foreach_copy_(list(params),
+                                     [new[k] for k in names])
             last = total.detach()
             step += 1
         # rotmat and betas may be the forward graph's static outputs, which

@@ -79,20 +79,50 @@ class Adam:
 
     @torch.no_grad()
     def step(self, params, grads):
+        """The new parameters, a dict; the moments are new tensors too.
+
+        Every leaf at once through torch._foreach_* (a few launches for
+        all leaves rather than a dozen per leaf), with the per-leaf
+        expression's roundings: mu = (1 - b1) g + b1 mu,
+        nu = (1 - b2) (g g) + b2 nu, p + (-lr) ((mu / c1) /
+        (sqrt(nu / c2) + eps)), bit for bit for float32 and float64 leaves
+        (the parameters are float32: a bfloat16 HMR casts per call)."""
         self.count += 1
         # the bias corrections in float32, as optax computes them
         n = np.float32(self.count)
-        c1 = float(1 - np.float32(self.b1) ** n)
-        c2 = float(1 - np.float32(self.b2) ** n)
-        out = {}
-        for k, p in params.items():
-            g = grads[k]
-            self.mu[k] = (1 - self.b1) * g + self.b1 * self.mu[k]
-            self.nu[k] = (1 - self.b2) * (g * g) + self.b2 * self.nu[k]
-            upd = (self.mu[k] / c1) / (torch.sqrt(self.nu[k] / c2)
-                                       + self.eps)
-            out[k] = p + (-self.lr) * upd
-        return out
+        c1 = 1 - np.float32(self.b1) ** n
+        c2 = 1 - np.float32(self.b2) ** n
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        mu = torch._foreach_mul(g, 1 - self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(
+            [self.mu[k] for k in keys], self.b1))
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1 - self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            [self.nu[k] for k in keys], self.b2))
+        self.mu, self.nu = dict(zip(keys, mu)), dict(zip(keys, nu))
+        den = _div_scalar(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        upd = _div_scalar(mu, c1)
+        torch._foreach_div_(upd, den)
+        del den
+        torch._foreach_mul_(upd, -self.lr)
+        return dict(zip(keys, torch._foreach_add(p, upd)))
+
+
+def _div_scalar(tensors, c):
+    """[t / c for t in tensors] (c a float32 number) as eager division by
+    a Python number rounds on the tensors' device: CUDA multiplies by the
+    reciprocal in the tensors' compute precision (float32 but for
+    float64), the CPU divides."""
+    if tensors and tensors[0].is_cuda:
+        inv = (1.0 / float(c) if tensors[0].dtype == torch.float64
+               else float(np.float32(1) / c))
+        return torch._foreach_mul(tensors, inv)
+    return torch._foreach_div(tensors, float(c))
 
 
 def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor]):

@@ -44,7 +44,12 @@ image shape step after step (EFT). It engages only where graph_engages
 holds: a CUDA image, the model in train(), and no BatchNorm2d with a
 sync_group (its all_reduce is not captured); everywhere else the caller
 runs the eager forward. The math is the same on both paths: the graphs
-replay the eager launches. See HMRGraphs for the contract.
+replay the eager launches. See HMRGraphs for the contract. It takes HMR
+and models/hmr2.HMR2 alike, each with its own masks (mask_buffer,
+masks_in, load_masks).
+
+create_hmr builds HMR for resnet50 and the models/vit.py configurations,
+and HMR 2.0 (models/hmr2.py) for the names of HMR2_CONFIGS.
 """
 
 import math
@@ -54,7 +59,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tuch_tpu_torch.models import hmr2 as hmr2_mod
 from tuch_tpu_torch.models import vit as vit_mod
+from tuch_tpu_torch.ops import attention
 from tuch_tpu_torch.parallel.mesh import all_reduce_
 from tuch_tpu_torch.utils.rotations import rot6d_to_rotmat
 
@@ -65,6 +72,8 @@ HEAD_WIDTH = 1024
 DROPOUT_RATE = 0.5
 # Flax's BatchNorm(momentum=0.9): ra = 0.9 ra + 0.1 batch statistic
 BN_MOMENTUM = 0.9
+# learned position embeddings outside any Linear (HMR 2.0's)
+POSITION_PARAMS = ('pos_embed', 'pos_embedding')
 
 
 class Conv2d(nn.Conv2d):
@@ -274,7 +283,8 @@ class HMR(nn.Module):
         else:
             raise ValueError(
                 f'unknown backbone {backbone!r}; have resnet50, '
-                f'{sorted(vit_mod.VIT_CONFIGS)}')
+                f'{sorted(vit_mod.VIT_CONFIGS)}, '
+                f'{sorted(hmr2_mod.HMR2_CONFIGS)}')
         self.fc1 = nn.Linear(nfeat + NPOSE + 13, HEAD_WIDTH)
         self.fc2 = nn.Linear(HEAD_WIDTH, HEAD_WIDTH)
         self.decpose = nn.Linear(HEAD_WIDTH, NPOSE)
@@ -329,6 +339,23 @@ class HMR(nn.Module):
             cam = self.deccam(xc) + cam
         return rot6d_to_rotmat(pose).reshape(B, 24, 3, 3), shape, cam
 
+    def mask_buffer(self, B: int, device):
+        """A static buffer of one train-mode forward's keep-masks for B
+        images, all kept (HMRGraphs)."""
+        return torch.ones(2 * N_ITER, B, HEAD_WIDTH, dtype=torch.bool,
+                          device=device)
+
+    @staticmethod
+    def masks_in(buf):
+        """The forward's `dropout` argument read from mask_buffer's
+        buffer."""
+        return [(buf[2 * i], buf[2 * i + 1]) for i in range(N_ITER)]
+
+    @staticmethod
+    def load_masks(buf, masks):
+        """Copy draw_dropout_masks' masks into mask_buffer's buffer."""
+        torch.stack([m for pair in masks for m in pair], out=buf)
+
 
 def graph_engages(model: HMR, device) -> bool:
     """Whether HMRGraphs replays model's step as CUDA graphs for an image
@@ -348,6 +375,7 @@ class _Replay(torch.autograd.Function):
     def forward(ctx, step, *params):
         ctx.step = step
         step.fwd.replay()
+        attention.count_replay(step.mha[0])
         return tuple(o.detach() for o in step.outs)
 
     @staticmethod
@@ -357,27 +385,29 @@ class _Replay(torch.autograd.Function):
         for buf, g in zip(step.grad_outs, grads):
             buf.copy_(g)
         step.bwd.replay()
+        attention.count_replay(step.mha[1])
         return (None,) + tuple(g.detach() for g in step.grads)
 
 
 class _GraphedStep:
     """The forward and backward graphs of one image shape and precision,
-    over static buffers: the image, the keep-masks, the outputs, their
-    gradients and the parameters' gradients."""
+    over static buffers: the image, the keep-masks (in the model's layout),
+    the outputs, their gradients and the parameters' gradients. mha: the
+    kernel-1 launches each graph's capture recorded, counted again at each
+    replay."""
 
     WARMUP = 3
 
-    def __init__(self, model: HMR, images):
+    def __init__(self, model, images):
         self.images = images.clone()
-        self.keep = torch.ones(2 * N_ITER, images.shape[0], HEAD_WIDTH,
-                               dtype=torch.bool, device=images.device)
+        self.keep = model.mask_buffer(images.shape[0], images.device)
+        self.load_masks = model.load_masks
         self.params = tuple(model.parameters())
         with torch.cuda.device(images.device):
             self._capture(model)
 
     def _capture(self, model):
-        masks = [(self.keep[2 * i], self.keep[2 * i + 1])
-                 for i in range(N_ITER)]
+        masks = model.masks_in(self.keep)
         # the warm-up and capture passes run the train-mode forward, which
         # moves the running statistics: they are put back afterwards
         stats = [(b, b.clone()) for b in model.buffers()]
@@ -395,12 +425,15 @@ class _GraphedStep:
         del outs
         torch.cuda.current_stream().wait_stream(side)
         self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        c0 = attention.mha_cuda.captured
         with torch.cuda.graph(self.fwd):
             outs = model(self.images, dropout=masks)
+        c1 = attention.mha_cuda.captured
         self.grad_outs = tuple(torch.zeros_like(o) for o in outs)
         with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
             self.grads = torch.autograd.grad(outs, self.params,
                                              self.grad_outs)
+        self.mha = (c1 - c0, attention.mha_cuda.captured - c1)
         # kept detached: the capture's autograd graph goes, and with it its
         # gradient accumulators, so that the replays' are made on the
         # stream that replays
@@ -410,7 +443,7 @@ class _GraphedStep:
                 b.copy_(saved)
 
     def __call__(self, masks):
-        torch.stack([m for pair in masks for m in pair], out=self.keep)
+        self.load_masks(self.keep, masks)
         with torch.cuda.device(self.images.device):
             return _Replay.apply(self, *self.params)
 
@@ -424,8 +457,9 @@ class HMRGraphs:
     False: the caller runs model(images, dropout=masks) as ever. Else it
     copies images into the static image buffer of their graphs (capturing
     them first if new) and returns step(masks) -> (rotmat, betas, cam),
-    the forward of model(images, dropout=masks) for draw_dropout_masks'
-    layout: a copy of the masks into their static buffer and one replay.
+    the forward of model(images, dropout=masks) for the model's masks
+    (HMR: draw_dropout_masks'; HMR2: its drop-path masks): a copy of the
+    masks into their static buffer and one replay.
     The backward of those outputs is one replay too, and gives the
     gradients of model's parameters (torch.autograd.grad(loss,
     parameters) as eagerly). Each forward must be followed by its
@@ -438,10 +472,11 @@ class HMRGraphs:
     (load_state_dict, copy_); a step moves the running statistics as the
     eager one does. Capture runs the forward and backward a few times and
     leaves the statistics as it found them. Nothing inside draws random
-    numbers: the masks come from the caller.
+    numbers: the masks come from the caller. Each replay adds the kernel-1
+    launches its capture recorded to ops/attention.mha_cuda.launches.
     """
 
-    def __init__(self, model: HMR):
+    def __init__(self, model):
         self.model = model
         self._steps = {}
 
@@ -477,7 +512,19 @@ def store_compute_weights(model: HMR) -> HMR:
 def create_hmr(mean_pose6d, mean_shape, mean_cam,
                backbone: str = 'resnet50',
                dtype: torch.dtype = torch.float32, stem_s2d: bool = False,
-               bn_fold: bool = False) -> HMR:
+               bn_fold: bool = False, img_res=None):
+    """HMR, or HMR 2.0 for a name of hmr2.HMR2_CONFIGS (built for
+    img_res crops, None its published 256; stem_s2d and bn_fold are
+    ResNet-50's and raise there). HMR takes any image size and ignores
+    img_res."""
+    if backbone in hmr2_mod.HMR2_CONFIGS:
+        if stem_s2d or bn_fold:
+            raise ValueError('stem_s2d and bn_fold are ResNet-50 '
+                             f'transforms; {backbone!r} has neither a 7x7 '
+                             'stem nor BatchNorm')
+        return hmr2_mod.HMR2(mean_pose6d, mean_shape, mean_cam,
+                             backbone=backbone, dtype=dtype,
+                             img_res=img_res)
     return HMR(mean_pose6d, mean_shape, mean_cam, backbone=backbone,
                dtype=dtype, stem_s2d=stem_s2d, bn_fold=bn_fold)
 
@@ -531,29 +578,32 @@ def folded(model: HMR) -> HMR:
     """A new eval-mode HMR(bn_fold=True) holding model's weights with its
     BatchNorm folded (fold_batchnorm), on model's device, with its dtype,
     stem and IEF start."""
+    state = fold_batchnorm(model.state_dict())
     new = HMR(*(b.cpu() for b in (model.init_pose, model.init_shape,
                                   model.init_cam)),
               backbone=model.backbone_name, dtype=model.dtype,
               stem_s2d=model.stem_s2d, bn_fold=True)
-    new.load_state_dict(fold_batchnorm(model.state_dict()))
+    new.load_state_dict(state)
     return new.to(model.init_pose.device).eval()
 
 
 @torch.no_grad()
-def init_weights(model: HMR, seed: int = 0) -> HMR:
+def init_weights(model, seed: int = 0):
     """Random weights from a seeded torch.Generator, drawn on the CPU so a
     seed gives the same model on every device.
 
     The JAX package's initialisers: LeCun normal for convs and Linears,
     Xavier uniform with gain 0.01 for the dec* Linears, zero biases, unit
-    BatchNorm and LayerNorm scales, BatchNorm statistics (0, 1).
+    BatchNorm and LayerNorm scales, BatchNorm statistics (0, 1). HMR 2.0's
+    learned position embeddings (POSITION_PARAMS) are normal with std
+    0.02, as ViTPose's.
     """
     gen = torch.Generator().manual_seed(seed)
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = mod.weight
             fan_out, fan_in = w.shape[0], w[0].numel()
-            if name.startswith('dec'):
+            if name.rpartition('.')[2].startswith('dec'):
                 bound = 0.01 * math.sqrt(6.0 / (fan_in + fan_out))
                 new = (torch.rand(w.shape, generator=gen) * 2 - 1) * bound
             else:
@@ -567,4 +617,7 @@ def init_weights(model: HMR, seed: int = 0) -> HMR:
             if isinstance(mod, nn.BatchNorm2d):
                 mod.running_mean.zero_()
                 mod.running_var.fill_(1.0)
+    for name, p in model.named_parameters():
+        if name.rpartition('.')[2] in POSITION_PARAMS:
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
     return model

@@ -6,6 +6,7 @@ joints, linear blend skinning, the 21 surface-vertex joints, the 9 extra
 regressed joints and the remap to the 49-joint convention.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,6 +52,15 @@ def _transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+@functools.lru_cache(maxsize=None)
+def _index_on(index: tuple, device) -> torch.Tensor:
+    """index as a long tensor on device, made once: indexing with a host
+    list copies it to the device each call, which waits for the device.
+    Made outside inference mode, so that autograd may save it later."""
+    with torch.inference_mode(False):
+        return torch.tensor(index, dtype=torch.long, device=device)
+
+
 def rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor, parents):
     """Forward kinematics along the kinematic tree.
 
@@ -59,8 +69,8 @@ def rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor, parents):
     (B, J, 4, 4) relative to the rest pose.
     """
     B, J = joints.shape[:2]
-    rel = torch.cat([joints[:, :1],
-                     joints[:, 1:] - joints[:, list(parents[1:])]], dim=1)
+    up = _index_on(tuple(int(p) for p in parents[1:]), joints.device)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, up]], dim=1)
     mats = _transform_mat(rot_mats, rel)  # (B, J, 4, 4)
 
     chains = [mats[:, 0]]

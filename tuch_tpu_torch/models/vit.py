@@ -15,6 +15,13 @@ position embedding run in it, and so does the residual stream; the
 LayerNorms run in float32 on a float32 copy and are cast back, and the final
 LayerNorm and the mean pool are float32. Parameters stay float32: a Linear
 casts its weights to the input's dtype at each call.
+
+ViTPose is the other backbone here: ViTPose's ViT as HMR 2.0 runs it
+(github.com/shubham-goel/4D-Humans, hmr2/models/backbones/vit.py;
+arXiv:2204.12484), under its module names: a padded convolution for the
+patch embedding, a learned position embedding whose cls slot is added to
+every token, pre-LN blocks with exact gelu and drop path, and the tokens
+out (no pool). Its dtype rules are the ViT's above.
 """
 
 import numpy as np
@@ -143,3 +150,116 @@ def create_vit(name: str, dtype: torch.dtype = torch.float32) -> ViT:
     width, depth, heads, patch = VIT_CONFIGS[name]
     return ViT(width=width, depth=depth, heads=heads, patch=patch,
                dtype=dtype)
+
+
+class PatchEmbed(nn.Module):
+    """ViTPose's patch embedding: a Conv2d of kernel and stride `patch`
+    with padding 2 (ViTPose's 4 + 2 (ratio // 2 - 1) at ratio 1), 3 ->
+    width, on NCHW images; tokens (B, gh * gw, width) in row-major grid
+    order."""
+
+    PADDING = 2
+
+    def __init__(self, width: int, patch: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, width, patch, stride=patch,
+                              padding=self.PADDING)
+
+    def forward(self, x):
+        w = self.proj.weight.to(x.dtype)
+        x = self.proj._conv_forward(x, w, self.proj.bias.to(x.dtype))
+        return x.flatten(2).transpose(1, 2)
+
+    @staticmethod
+    def grid(size: int, patch: int) -> int:
+        """Tokens along an axis of `size` pixels."""
+        return (size + 2 * PatchEmbed.PADDING - patch) // patch + 1
+
+
+class Mlp(nn.Module):
+    """fc1, exact gelu, fc2."""
+
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.fc1 = Linear(width, hidden)
+        self.fc2 = Linear(hidden, width)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+def drop_path(x, keep, prob: float):
+    """timm's DropPath on per-sample keep-masks (B,) bool: kept samples
+    x / prob, dropped ones 0; x as it is where prob is 1 (rate 0)."""
+    if keep is None or prob == 1.0:
+        return x
+    return x.div(prob) * keep.to(x.dtype)[:, None, None]
+
+
+class PoseBlock(nn.Module):
+    """ViTPose's block: x + dp(attn(LN(x))); x + dp(mlp(LN(x))), LayerNorm
+    eps 1e-6, each branch's drop path kept with probability `keep_prob`."""
+
+    def __init__(self, width: int, heads: int, mlp_ratio: int,
+                 keep_prob: float):
+        super().__init__()
+        self.keep_prob = keep_prob
+        self.norm1 = nn.LayerNorm(width, eps=LN_EPS)
+        self.attn = Attention(width, heads)
+        self.norm2 = nn.LayerNorm(width, eps=LN_EPS)
+        self.mlp = Mlp(width, mlp_ratio * width)
+
+    def forward(self, x, keep_attn=None, keep_mlp=None):
+        y = self.attn(layer_norm(self.norm1, x))
+        x = x + drop_path(y, keep_attn, self.keep_prob)
+        y = self.mlp(layer_norm(self.norm2, x))
+        return x + drop_path(y, keep_mlp, self.keep_prob)
+
+
+def drop_path_keep_probs(depth: int, rate: float):
+    """Each block's keep probability, 1 - linspace(0, rate, depth) as timm
+    and ViTPose compute it (the rates in float32, then Python floats)."""
+    rates = torch.linspace(0, rate, depth, device='cpu')
+    return [1.0 - r for r in rates.tolist()]
+
+
+class ViTPose(nn.Module):
+    """ViTPose's ViT: NHWC (B, H, W, 3) crops -> tokens (B, gh * gw,
+    width), float32 after the last LayerNorm.
+
+    The position embedding (1, 1 + gh * gw, width) is learned for one input
+    size: its first slot (ViTPose's cls slot; there is no cls token) is
+    added to every token, x + pos[:, 1:] + pos[:, :1]. In train mode the
+    blocks' branches take drop path on the keep-masks (2 depth, B) bool
+    passed in (row 2 i block i's attention, 2 i + 1 its MLP); None (eval)
+    has none."""
+
+    def __init__(self, width: int, depth: int, heads: int, patch: int,
+                 grid, mlp_ratio: int = 4, drop_path_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.width, self.patch, self.dtype = width, patch, dtype
+        self.grid = tuple(grid)
+        self.patch_embed = PatchEmbed(width, patch)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, 1 + self.grid[0] * self.grid[1], width))
+        self.blocks = nn.ModuleList(
+            PoseBlock(width, heads, mlp_ratio, keep)
+            for keep in drop_path_keep_probs(depth, drop_path_rate))
+        self.last_norm = nn.LayerNorm(width, eps=LN_EPS)
+
+    def forward(self, x, keep=None):
+        B, H, W, _ = x.shape
+        grid = (PatchEmbed.grid(H, self.patch), PatchEmbed.grid(W, self.patch))
+        if grid != self.grid:
+            raise ValueError(f'ViTPose was built for a {self.grid} token '
+                             f'grid; a {H}x{W} input gives {grid}')
+        x = self.patch_embed(x.to(self.dtype).permute(0, 3, 1, 2))
+        pos = self.pos_embed.to(self.dtype)
+        x = x + pos[:, 1:] + pos[:, :1]
+        for i, block in enumerate(self.blocks):
+            if keep is None:
+                x = block(x)
+            else:
+                x = block(x, keep[2 * i], keep[2 * i + 1])
+        return self.last_norm(x.float())

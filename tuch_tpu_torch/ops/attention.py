@@ -7,6 +7,12 @@ PyTorch version, its wrapper and its launch count.
 Layout: qkv is the (B, N, 3C) output of the fused qkv Linear, head-major
 within each third (column ((i3 * H) + h) * hd + d, models/vit.py); the
 result is (B, N, C) with column h * hd + d.
+
+Launch count: mha_cuda.launches counts the launches that ran. A launch
+made while a CUDA graph captures the stream runs only when the graph is
+replayed, so it goes to mha_cuda.captured instead; the graph's owner adds
+what its capture recorded at each replay (count_replay; models/hmr's
+HMRGraphs does).
 """
 
 import ctypes
@@ -17,7 +23,7 @@ import torch
 from tuch_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 80)
 
 
 def mha_reference(qkv: torch.Tensor, heads: int) -> torch.Tensor:
@@ -49,7 +55,8 @@ def _entry():
 
 
 def mha_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """Launch csrc/mha.cu on a CUDA tensor; counts each launch."""
+    """Launch csrc/mha.cu on a CUDA tensor; counts each launch (in
+    .captured while a CUDA graph captures the stream, else in .launches)."""
     if qkv.device.type != 'cuda':
         raise ValueError(f'mha_cuda needs a CUDA tensor, got {qkv.device}')
     if qkv.dtype not in _DTYPE_CODES:
@@ -72,12 +79,22 @@ def mha_cuda(qkv: torch.Tensor, heads: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(qkv.data_ptr(), out.data_ptr(), B, N, heads, hd,
                  _DTYPE_CODES[qkv.dtype], 1.0 / math.sqrt(hd), stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     _build.check(lib, err, 'mha kernel launch')
-    mha_cuda.launches += 1
+    if capturing:
+        mha_cuda.captured += 1
+    else:
+        mha_cuda.launches += 1
     return out
 
 
-mha_cuda.launches = 0
+mha_cuda.launches = mha_cuda.captured = 0
+
+
+def count_replay(captured: int) -> None:
+    """Count the `captured` kernel-1 launches of one CUDA graph replay (the
+    graph's capture's part of mha_cuda.captured) as launches that ran."""
+    mha_cuda.launches += captured
 
 
 def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:

@@ -99,12 +99,15 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
                   with_segments: bool = True,
                   dtype: str = 'float32',
                   with_hd: bool = False, stem_s2d: bool = False,
-                  bn_fold: bool = False) -> Runtime:
+                  bn_fold: bool = False,
+                  img_res: Optional[int] = None) -> Runtime:
     """Build SMPL and HMR in eval mode on `device` (CUDA by default);
     with_contact adds the GMM prior and the contact assets, with_hd the HD
     surface. HMR computes in `dtype` ('float32' or 'bfloat16', a key of
     COMPUTE_DTYPES), folded (inference only) if bn_fold; stem_s2d is
-    recorded on the HMR and changes nothing else.
+    recorded on the HMR and changes nothing else. img_res: the crop an HMR
+    2.0 backbone (models/hmr2) is built for, None its published 256; the
+    other backbones take any size.
 
     synthetic=None picks the real assets when SMPL_NEUTRAL.pkl exists and
     says which it picked. The synthetic body, its contact extras and prior,
@@ -147,7 +150,8 @@ def build_runtime(device=None, synthetic: Optional[bool] = None,
             hd_compact = _load_real_hd()
 
     hmr = hmr_mod.create_hmr(*means, backbone=backbone,
-                             dtype=COMPUTE_DTYPES[dtype], stem_s2d=stem_s2d)
+                             dtype=COMPUTE_DTYPES[dtype], stem_s2d=stem_s2d,
+                             img_res=img_res)
     hmr_mod.init_weights(hmr)
     if checkpoint:
         load_hmr_weights(hmr, load_checkpoint(checkpoint))

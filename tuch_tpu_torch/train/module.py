@@ -132,8 +132,8 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig,
     batch: the loader's arrays or tensors (img (B, H, W, 3) normalised,
     keypoints (B, 49, 3) in [-1, 1], pose, betas, pose_3d, contact_vec,
     the has_* flags, is_flipped, rot_angle, fits_index). dropout: the
-    head's keep-masks (models/hmr.draw_dropout_masks' layout); None draws
-    them from state.generator. Each part of the step runs under a
+    head's keep-masks (models/hmr.draw_dropout_masks' layout; HMR 2.0's
+    drop-path masks, models/hmr2); None draws them from state.generator. Each part of the step runs under a
     torch.profiler record_function span 'train_step.<part>', part one of
     STEP_PARTS, so that a profile splits the step's time.
 
@@ -210,8 +210,13 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig,
         with record_function('train_step.hmr_forward'):
             hmr.train()
             if dropout is None:
-                dropout = draw_dropout_masks(B * dp, state.generator, dev)
-            dropout = [(d1[rows], d2[rows]) for d1, d2 in dropout]
+                # HMR 2.0 draws its drop-path masks, (2 depth, B) bool
+                draw = getattr(hmr, 'draw_masks', draw_dropout_masks)
+                dropout = draw(B * dp, state.generator, dev)
+            if isinstance(dropout, torch.Tensor):
+                dropout = dropout[:, rows]
+            else:
+                dropout = [(d1[rows], d2[rows]) for d1, d2 in dropout]
             pred_rotmat, pred_betas, pred_camera = hmr(b['img'],
                                                        dropout=dropout)
             pred_out = smpl_forward(smpl, pred_betas, pred_rotmat[:, 1:],

@@ -17,9 +17,16 @@ def perspective_projection(points: torch.Tensor, rotation: torch.Tensor,
     pts = torch.einsum('bij,bkj->bki', rotation, points) \
         + translation[:, None, :]
     xy = pts[..., :2] / pts[..., 2:3]
-    f = torch.as_tensor(focal_length, dtype=points.dtype,
-                        device=points.device)
-    f = f.reshape(-1, 1, 1) if f.dim() else f
+    if isinstance(focal_length, (int, float)) and points.dtype in (
+            torch.float32, torch.float64):
+        # a number multiplies as it is, rounded to points' dtype as the
+        # tensor below would be: that tensor is copied to the device at
+        # each call, which waits for the device
+        f = float(focal_length)
+    else:
+        f = torch.as_tensor(focal_length, dtype=points.dtype,
+                            device=points.device)
+        f = f.reshape(-1, 1, 1) if f.dim() else f
     return f * xy + camera_center[:, None, :]
 
 
