@@ -19,7 +19,12 @@ exit, no result line) if any check fails:
              through the kernel against the plain version's at the
              ViT-S/16 B=64 shape and ViTPose-H's B=1 in both dtypes, and one
              ViT-S/16 backward whose qkv weight gradients equal those with
-             the plain version in the kernel's place;
+             the plain version in the kernel's place; then the Adam kernel
+             (csrc/adam.cu) at HMR 2.0's and ResNet-50's leaves in float32:
+             one step equal to the plain foreach update bit for bit, its
+             time (CUDA-graph replay) beside its bound, the plain update
+             with its copy into the parameters and torch._fused_adam_, and
+             each instantiation's ptxas line;
   3. serve   the HTTP server with the ViT-S/16 backbone at full width on the
              synthetic 6890-vertex body: a single /predict and a concurrent
              burst that fills a micro-batch bucket; the attention kernel must
@@ -126,13 +131,14 @@ and EFT and the demo and rendering path, through their entry points:
 
  15. eft     cli/fit_eft --synthetic on the full body at 224 px with
              ResNet-50 (4 images, up to 50 Adam steps each): finite
-             outputs, the npz schema, the exact launches of kernels 2, 4, 5
-             and 6 per step, steps and ms per image; then on one image the
-             card against the port's CPU path over 3 steps on the same
-             dropout masks (the loss at TRAIN_LOSS_RTOL, pose and betas by
-             phase 12's rule against the CPU's float64 fit), steps with a
-             loss read each against steps with none (the stop check's
-             cost), and one profiled fit's device busy time and idle share.
+             outputs, the npz schema, the exact launches of kernels 2, 4,
+             5, 6 and 8 per step, steps and ms per image; then on one
+             image the card against the port's CPU path over 3 steps on
+             the same dropout masks (the loss at TRAIN_LOSS_RTOL, pose and
+             betas by phase 12's rule against the CPU's float64 fit), steps
+             with a loss read each against steps with none (the stop
+             check's cost), and one profiled fit's device busy time and
+             idle share.
  16. demo    cli/demo_tuch --synthetic on the card and on the CPU: every
              output written, vertices within VERTEX_TOL, the native C++
              library (viz/native.cpp, built with g++) taken for the crop
@@ -151,8 +157,8 @@ and the offline tools and the real-format path:
              asset tree of the full-topology body (6890-vertex SMPL
              pickles, geodesics, DSC tables, segments, HD regressor), then
              one cli/train --run_smplify step without --synthetic on its
-             databases (ResNet-50, B=2, 2 fit iterations; kernels 2, 4, 5
-             and 6 launched as phase 12 counts) and cli/eval on its 3DPW
+             databases (ResNet-50, B=2, 2 fit iterations; kernels 2, 4, 5,
+             6 and 8 launched as phase 12 counts) and cli/eval on its 3DPW
              test database, each card against CPU.
 
 and the device mesh (parallel/), its ranks processes that share the
@@ -195,16 +201,17 @@ processes:
 `--offline` runs phases 1, 7, 17 and 18 alone (~2.5 minutes) and
 `--parallel` runs phases 1 and 19-21 alone (~5 minutes); they print no
 result lines. `--kernels` runs phases 1 and 2 alone and prints kernel 1's
-rows of the kernel summary (their launches null: no phase it runs
-counts them). Weights and bodies are random from fixed seeds. The last
-two lines of standard output are the kernel summary and {"ok": true,
-"device": {...}} as JSON; the line before them is the card's name and
-power limit from nvidia-smi.
+and the Adam kernel's rows of the kernel summary (their launches null: no
+phase it runs counts them on a main path). Weights and bodies are random
+from fixed seeds. The last two lines of standard output are the kernel
+summary and {"ok": true, "device": {...}} as JSON; the line before them is
+the card's name and power limit from nvidia-smi.
 """
 
 import argparse
 import base64
 import copy
+import functools
 import io
 import json
 import os
@@ -301,8 +308,9 @@ EVAL_BN_FOLD_MM = 0.01           # cli/eval report, --bn_fold against not
 # (the loss at the step's loss bar, pose and betas by phase 12's rule);
 # steps with and without the per-step stop check
 EFT_DIR = os.path.join('build', 'chip_smoke_eft')
+# (kernel 8: ResNet-50 and the IEF head's 169 tensors, 91 a launch)
 EFT_STEP_LAUNCHES = {'winding': 2, 'masked_min': 1, 'gather': 1,
-                     'scatter_add': 1}
+                     'scatter_add': 1, 'adam': 2}
 EFT_PARITY_STEPS = 3
 EFT_AB_STEPS, EFT_AB_PAIRS = 10, 2
 # demo_tuch (phase 16): outputs per image, card against CPU vertices
@@ -524,6 +532,106 @@ def phase_kernels(results):
         _hold_mha_grad(1, VITPOSE_H['N'], VITPOSE_H['C'], VITPOSE_H['H'],
                        dtype, gen)
     _hold_vit_grad(gen)
+
+
+@functools.lru_cache(maxsize=None)
+def hmr_param_shapes(backbone):
+    """The parameter shapes of HMR with `backbone` (ResNet-50 and the
+    IEF head: 169; ViT-S/16: 158; hmr2_vith16, HMR 2.0: 500), from the
+    model built on the meta device."""
+    from tuch_tpu_torch.models import hmr as H
+    means = (np.zeros(144), np.zeros(10), np.zeros(3))
+    with torch.device('meta'):
+        m = H.create_hmr(*means, backbone=backbone)
+    return [tuple(p.shape) for p in m.parameters()]
+
+
+def phase_adam(results):
+    """The Adam kernel at each model's leaves in float32, in place: one
+    step against the plain update bit for bit, then its time, the plain
+    update followed by its copy into the parameters (the EFT step before
+    the kernel) and torch._fused_adam_ (a yardstick the port never calls),
+    by CUDA-graph replay of whole steps (device time, without the host's
+    cost), beside the bytes' bound (28 B a float at HBM_BYTES_PER_S).
+    The launches checked here are this one call's; the summary's come
+    from phase 15's counted EFT run."""
+    from tuch_tpu_torch.ops import _build
+    from tuch_tpu_torch.ops import adam as OA
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    for model in ('hmr2', 'resnet50'):
+        shapes = hmr_param_shapes('hmr2_vith16' if model == 'hmr2'
+                                  else model)
+        p = [torch.randn(s, generator=gen, device=DEV) for s in shapes]
+        g = [torch.randn(s, generator=gen, device=DEV) * 1e-2
+             for s in shapes]
+        m = [torch.randn(s, generator=gen, device=DEV) * 1e-3
+             for s in shapes]
+        v = [torch.rand(s, generator=gen, device=DEV) * 1e-6
+             for s in shapes]
+        hyper = dict(lr=1e-5, b1=0.9, b2=0.999, eps=1e-8,
+                     c1=1 - np.float32(0.9) ** 3,
+                     c2=1 - np.float32(0.999) ** 3)
+        want = OA.adam_plain(p, g, m, v, **hyper)
+        n0 = OA.adam_cuda.launches
+        OA.adam_cuda(p, g, m, v, **hyper)
+        launches = OA.adam_cuda.launches - n0
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for got, ref in zip((p, m, v), want)
+                   for a, b in zip(got, ref))
+        del want
+        floats = sum(t.numel() for t in p)
+        plan = OA.chunk_plan([t.numel() for t in p])
+        check(same and launches == len(plan),
+              f'adam {model}: bit for bit {same}, launches {launches} '
+              f'against the plan\'s {len(plan)}')
+
+        def plain():
+            new = OA.adam_plain(p, g, m, v, **hyper)
+            torch._foreach_copy_(p, new[0])
+
+        steps = [torch.tensor(3.0, device=DEV) for _ in p]
+
+        def fused():
+            torch._fused_adam_(p, g, m, v, [], steps, lr=1e-5, beta1=0.9,
+                               beta2=0.999, weight_decay=0.0, eps=1e-8,
+                               amsgrad=False, maximize=False)
+
+        iters = 5 if model == 'hmr2' else 20
+        ms = graph_ms(lambda: OA.adam_cuda(p, g, m, v, **hyper), iters)
+        plain_ms = graph_ms(plain, iters)
+        lib_ms = graph_ms(fused, iters)
+        bound_ms = 1e3 * 28 * floats / HBM_BYTES_PER_S
+        print(f'[kernel] adam {model}: {len(p)} tensors, {floats} floats, '
+              f'{launches} launches a step; kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, fused_adam {lib_ms:.4f} ms, bound '
+              f'{bound_ms:.4f} ms (bytes), {bound_ms / ms:.1%} of bound '
+              f'(CUDA-graph replay of whole steps, device time); equal to '
+              f'the plain update bit for bit', flush=True)
+        results['adam', model] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by='bytes', max_abs_err=0.0)
+        del p, g, m, v, steps
+        torch.cuda.empty_cache()
+    lines = _build.BUILD_LOG.get('adam', '').splitlines()
+    for i, ln in enumerate(lines):
+        if 'Compiling entry function' in ln and 'tuch_adam_kernel' in ln:
+            info = [x.strip() for x in lines[i + 1:i + 5]
+                    if 'registers' in x or 'spill' in x]
+            print(f'[kernel] adam ptxas {ln.split()[-1]}: {info}',
+                  flush=True)
+
+
+def adam_rows(kernels, launches):
+    """The Adam kernel's rows of the kernel summary, one a leaf set, with
+    the launches of one EFT step as phase 15's run counted them at
+    ResNet-50's (None at HMR 2.0's: no phase here fits with HMR 2.0, the
+    benchmark's fit.hmr2_vith16.eft_b1 counts them)."""
+    return [dict(name=f'adam_{model}', source='tuch_tpu_torch/csrc/adam.cu',
+                 replaces='none (the JAX package runs optax.adam)',
+                 launches=launches.get('adam') if model == 'resnet50'
+                 else None, **kernels['adam', model])
+            for model in ('hmr2', 'resnet50')]
 
 
 def mha_rows(kernels, launches):
@@ -850,12 +958,14 @@ def bound(ops, nbytes):
 
 
 def slice_counters():
+    from tuch_tpu_torch.ops import adam as OA
     from tuch_tpu_torch.ops import contact_kernels as CK
     from tuch_tpu_torch.ops import gather as G
     return {'winding': CK.winding_numbers_tris_cuda,
             'masked_min': CK.masked_min_dist_cuda,
             'gather': G.gather_rows_cuda,
-            'scatter_add': G.scatter_add_rows_cuda}
+            'scatter_add': G.scatter_add_rows_cuda,
+            'adam': OA.adam_cuda}
 
 
 def posed_verts(smpl, B, scale, seed):
@@ -1446,8 +1556,10 @@ def phase_fit(runtime, launches):
           f'fit: vertices {tuple(res.vertices.shape)}')
     final = res.reprojection_loss.sum(-1).cpu().numpy()
     init = out.init_reprojection_loss.sum(-1).cpu().numpy()
+    # kernel 8 once an Adam step: FIT_ITERS camera steps, FIT_ITERS body
     expected = {'winding': 2 * FIT_ITERS, 'masked_min': FIT_ITERS,
-                'gather': FIT_ITERS, 'scatter_add': FIT_ITERS}
+                'gather': FIT_ITERS, 'scatter_add': FIT_ITERS,
+                'adam': 2 * FIT_ITERS}
     print(f'[fit] demo_smplify_dc --synthetic, {FIT_IMAGES} images x '
           f'{FIT_ITERS} iterations behind the ResNet-50 init: reprojection '
           f'loss per image {np.round(init, 1).tolist()} -> '
@@ -1654,10 +1766,15 @@ def train_launches(backbone, iters):
     and once in the loss, kernel 6 once per iteration only (with HD the
     loss's gradient reaches the vertices through the HD points, not
     through the re-gather), kernel 1 once per ViT-S/16 block (its backward
-    recomputes the plain version)."""
+    recomputes the plain version), kernel 8 once per SMPLify-DC step (the
+    camera's and the body's, iters each) and the chunk plan's launches
+    over HMR's parameters."""
+    from tuch_tpu_torch.ops import adam as OA
     return {'mha': VIT_S16_DEPTH if backbone == 'vit_s16' else 0,
             'winding': 2 * iters + 3, 'masked_min': iters + 1,
-            'gather': iters + 1, 'scatter_add': iters}
+            'gather': iters + 1, 'scatter_add': iters,
+            'adam': 2 * iters + len(OA.chunk_plan(
+                [int(np.prod(s)) for s in hmr_param_shapes(backbone)]))}
 
 
 def _step_tensors(state):
@@ -2521,10 +2638,11 @@ def eft_fit_on(dev, runtime, sample, dtype=torch.float32, **kw):
     return fit, start, ins
 
 
-def phase_eft(runtime, card):
+def phase_eft(runtime, card, launches):
     """cli/fit_eft --synthetic on the card (4 images, ResNet-50 at 224 px,
     the full body with every contact asset): finite outputs, the npz
-    schema, the exact launches of kernels 2, 4, 5 and 6 per step, steps and
+    schema, the exact launches of kernels 2, 4, 5, 6 and 8 per step (kernel
+    8's a step go into launches), steps and
     ms per image; then on the first image the card against the port's CPU
     path over EFT_PARITY_STEPS steps on the same dropout masks (TF32 off),
     the stop check's cost (steps with a loss read each against steps with
@@ -2578,6 +2696,7 @@ def phase_eft(runtime, card):
           f'runtime; launches {counts}, expected {expected} '
           f'({EFT_STEP_LAUNCHES} a step); card: {card}', flush=True)
     check(counts == expected, f'eft launches {counts} != {expected}')
+    launches['adam'] = counts['adam'] // steps
 
     # the card against the CPU, same masks, TF32 off
     sample = eft_sample(len(runtime.contact_classes))
@@ -3086,8 +3205,8 @@ def phase_real_format(card):
     (real_format_tree, real_databases), then one cli/train --run_smplify
     step without --synthetic (ResNet-50, B=REAL_B at 224 px, REAL_ITERS
     fit iterations, the HD loss) on the card and on the CPU, on the same
-    dropout masks (TF32 off): the launches of kernels 2, 4, 5 and 6 on the
-    card, and phase 12's bars (every metric at TRAIN_LOSS_RTOL, the accept
+    dropout masks (TF32 off): the launches of kernels 2, 4, 5, 6 and 8 on
+    the card, and phase 12's bars (every metric at TRAIN_LOSS_RTOL, the accept
     mask equal, the fits rows and opt_vertices within VERTEX_TOL); then
     cli/eval on the 3DPW test database on the card and on the CPU, each
     sample's errors within VERTEX_TOL."""
@@ -4307,8 +4426,11 @@ def main(argv=None) -> int:
         kernels = {}
         phase_build()
         phase_kernels(kernels)
+        phase_adam(kernels)
         print(card, flush=True)
-        print(json.dumps(kernel_summary(mha_rows(kernels, {}))), flush=True)
+        print(json.dumps(kernel_summary(mha_rows(kernels, {})
+                                        + adam_rows(kernels, {}))),
+              flush=True)
         return 0
     # Comparisons against plain versions and the CPU are made in full fp32:
     # cuDNN convolutions default to TF32 on this card, matmuls do not; both
@@ -4324,6 +4446,7 @@ def main(argv=None) -> int:
     phase_build()
     clock('2')
     phase_kernels(kernels)
+    phase_adam(kernels)
     predictors = {f'{bb} {dt}': phase_serve(bb, dt, launches)
                   for bb in ('vit_s16', 'resnet50')
                   for dt in ('float32', 'bfloat16')}
@@ -4372,7 +4495,7 @@ def main(argv=None) -> int:
     shutil.rmtree(TRAIN_LOG_DIR, ignore_errors=True)
     # phases 15 and 16: EFT, and the demo with its renders
     clock('15')
-    phase_eft(fit_rt, card)
+    phase_eft(fit_rt, card, launches)
     phase_demo(card)
     # phases 17 and 18: the offline tools, and the port's own databases on
     # the real-format path
@@ -4385,7 +4508,7 @@ def main(argv=None) -> int:
     parallel_phases(card, kernels, launches)
 
     # kernel 1 in both types: fp32 serves by default, bf16 with --dtype
-    rows = mha_rows(kernels, launches)
+    rows = mha_rows(kernels, launches) + adam_rows(kernels, launches)
     for name, src, rep in (
             ('winding', 'winding.cu', 'contact_pallas.py:85'),
             ('masked_min', 'masked_min.cu', 'contact_pallas.py:404'),

@@ -75,13 +75,13 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     code = ('import shutil; import tuch_tpu_torch.ops.attention, '
             'tuch_tpu_torch.ops.contact_kernels, tuch_tpu_torch.ops.gather, '
             'tuch_tpu_torch.ops.segments, tuch_tpu_torch.ops.winding_hier, '
-            'tuch_tpu_torch.ops._build as b; '
+            'tuch_tpu_torch.ops.adam, tuch_tpu_torch.ops._build as b; '
             'assert shutil.which("nvcc") is None; print(b.sources())')
     out = subprocess.run([sys.executable, '-c', code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     for name in ('mha', 'winding', 'masked_min', 'gather', 'winding_affine',
-                 'winding_near'):
+                 'winding_near', 'adam'):
         assert repr(name) in out.stdout
 
 

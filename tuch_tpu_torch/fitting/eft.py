@@ -1,10 +1,11 @@
 """EFT: exemplar fine-tuning of the whole HMR network, one image at a time.
 
-Counterpart of tuch_tpu/fitting/eft.py. Per image the fit starts from the
-given parameters and BatchNorm statistics and runs a fresh Adam (optax's,
-float32 bias corrections) on the HMR in train mode (batch statistics at
-B=1, the IEF head's dropout) through SMPL and the EFT loss, with the JAX
-package's early stop: the loop goes on while
+Counterpart of tuch_tpu/fitting/eft.py. Per image the fit starts from
+the given parameters and BatchNorm statistics and runs a fresh Adam
+(optax's, float32 bias corrections; it updates the parameters in place,
+on a CUDA image in one pass of ops/adam's kernel) on the HMR in train
+mode (batch statistics at B=1, the IEF head's dropout) through SMPL and
+the EFT loss, with the JAX package's early stop: the loop goes on while
 
     step < max_steps and (loss >= early_stop_loss or step <= min_steps + 1)
 
@@ -180,7 +181,8 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
         hmr.train()
         graphed = graphs.bind(img)
         names, params = zip(*hmr.named_parameters())
-        opt = Adam({k: p.detach() for k, p in zip(names, params)}, lr)
+        opt = Adam({k: p.detach() for k, p in zip(names, params)}, lr,
+                   in_place=True)
         dev = img.device
         rotmat = torch.eye(3, dtype=img.dtype, device=dev).expand(
             1, 24, 3, 3)
@@ -215,10 +217,8 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                     if spans is not None:
                         spans.close()
             with record_function('eft_step.adam'), torch.no_grad():
-                new = opt.step(dict(zip(names, params)),
-                               dict(zip(names, grads)))
-                torch._foreach_copy_(list(params),
-                                     [new[k] for k in names])
+                # in place: one pass of the kernel on the card
+                opt.step(dict(zip(names, params)), dict(zip(names, grads)))
             last = total.detach()
             step += 1
         # rotmat and betas may be the forward graph's static outputs, which

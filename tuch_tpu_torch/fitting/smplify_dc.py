@@ -27,6 +27,7 @@ from tuch_tpu_torch.losses import smplify as L
 from tuch_tpu_torch.losses.prior import GMMPrior
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
+from tuch_tpu_torch.ops.adam import adam_cuda, adam_plain
 from tuch_tpu_torch.parallel import mesh as PM
 
 # Joints ignored during fitting (reference smplifydc.py:46-47).
@@ -68,61 +69,62 @@ class SMPLifyResult(NamedTuple):
 
 
 class Adam:
-    """optax.adam(lr, b1, b2, eps) on a dict of tensors."""
+    """optax.adam(lr, b1, b2, eps) on a dict of tensors.
+
+    step is functional: it returns new parameters and replaces the moments
+    by new tensors. Made with in_place=True, it writes the new parameters
+    into the given parameters' tensors and the new moments into the
+    moments' tensors instead, and raises their autograd versions. Both
+    take every leaf at once: on the card through one pass of the kernel
+    (ops/adam.adam_cuda; the functional step first copies p, m and v into
+    new tensors), on the CPU through torch._foreach_* (ops/adam.adam_plain),
+    with the per-leaf expression's roundings, bit for bit, for float32 and
+    float64 leaves (the parameters are float32: a bfloat16 HMR casts per
+    call)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 in_place: bool = False):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.in_place = in_place
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.count = 0
 
     @torch.no_grad()
     def step(self, params, grads):
-        """The new parameters, a dict; the moments are new tensors too.
-
-        Every leaf at once through torch._foreach_* (a few launches for
-        all leaves rather than a dozen per leaf), with the per-leaf
-        expression's roundings: mu = (1 - b1) g + b1 mu,
-        nu = (1 - b2) (g g) + b2 nu, p + (-lr) ((mu / c1) /
-        (sqrt(nu / c2) + eps)), bit for bit for float32 and float64 leaves
-        (the parameters are float32: a bfloat16 HMR casts per call)."""
+        """The new parameters, a dict: params' own tensors where the
+        optimizer was made with in_place=True, new ones otherwise."""
         self.count += 1
         # the bias corrections in float32, as optax computes them
         n = np.float32(self.count)
-        c1 = 1 - np.float32(self.b1) ** n
-        c2 = 1 - np.float32(self.b2) ** n
+        hyper = dict(lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                     c1=1 - np.float32(self.b1) ** n,
+                     c2=1 - np.float32(self.b2) ** n)
         keys = list(params)
-        p = [params[k] for k in keys]
-        g = [grads[k] for k in keys]
-        mu = torch._foreach_mul(g, 1 - self.b1)
-        torch._foreach_add_(mu, torch._foreach_mul(
-            [self.mu[k] for k in keys], self.b1))
-        nu = torch._foreach_mul(g, g)
-        torch._foreach_mul_(nu, 1 - self.b2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            [self.nu[k] for k in keys], self.b2))
-        self.mu, self.nu = dict(zip(keys, mu)), dict(zip(keys, nu))
-        den = _div_scalar(nu, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = _div_scalar(mu, c1)
-        torch._foreach_div_(upd, den)
-        del den
-        torch._foreach_mul_(upd, -self.lr)
-        return dict(zip(keys, torch._foreach_add(p, upd)))
-
-
-def _div_scalar(tensors, c):
-    """[t / c for t in tensors] (c a float32 number) as eager division by
-    a Python number rounds on the tensors' device: CUDA multiplies by the
-    reciprocal in the tensors' compute precision (float32 but for
-    float64), the CPU divides."""
-    if tensors and tensors[0].is_cuda:
-        inv = (1.0 / float(c) if tensors[0].dtype == torch.float64
-               else float(np.float32(1) / c))
-        return torch._foreach_mul(tensors, inv)
-    return torch._foreach_div(tensors, float(c))
+        p, g, m, v = [[d[k] for k in keys] for d in (params, grads, self.mu,
+                                                      self.nu)]
+        if not keys:
+            new = ([], [], [])
+        elif p[0].is_cuda:
+            if not self.in_place:
+                fresh = []
+                for ts in (p, m, v):
+                    out = [torch.empty_like(
+                        t, memory_format=torch.contiguous_format)
+                        for t in ts]
+                    torch._foreach_copy_(out, ts)
+                    fresh.append(out)
+                p, m, v = fresh
+            new = adam_cuda(p, g, m, v, **hyper)
+        else:
+            new = adam_plain(p, g, m, v, **hyper)
+            if self.in_place:
+                for old, t in zip((p, m, v), new):
+                    torch._foreach_copy_(old, t)
+                new = (p, m, v)
+        self.mu, self.nu = dict(zip(keys, new[1])), dict(zip(keys, new[2]))
+        return dict(zip(keys, new[0]))
 
 
 def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor]):
