@@ -1648,21 +1648,23 @@ def body_stepper(assets, ins, init_scale=1.0, neighbors=None, mesh=None):
     mesh: the contact's cp split (phase 19). Each call returns (loss,
     gradients on the CPU)."""
     from tuch_tpu_torch.fitting import smplify_dc as PF
+    from tuch_tpu_torch.ops.adam import Adam, contiguous_clones
     init_pose, betas, cam_t, cc, kp, gt, ign, hdc, _ = ins
     stage = PF.contact_stage(*assets, betas, cam_t, cc, kp[..., :2],
                              kp[..., 2], gt, ign, hdc, PF.SMPLifyConfig(
                                  euclthres=0.02, contact_loss_weight=2000.0,
                                  mesh=mesh))
     pose = init_pose * init_scale
-    state = {'body_pose': pose[:, 3:], 'global_orient': pose[:, :3]}
-    opt = PF.Adam(state, 1e-2)
+    state = contiguous_clones({'body_pose': pose[:, 3:],
+                               'global_orient': pose[:, :3]})
+    opt = Adam(state, 1e-2)
     dev = init_pose.device
 
     def step():
         nb = stage.neighbors(state) if neighbors is None else \
             tuple(t.to(dev) for t in neighbors)
         loss, grads = PF.value_and_grad(lambda q: stage.loss(q, nb), state)
-        state.update(opt.step(state, grads))
+        opt.step(state, grads)
         return float(loss), {k: g.cpu() for k, g in grads.items()}
     return step
 

@@ -1,16 +1,16 @@
-"""fitting/smplify_dc.Adam and ops/adam: the plain foreach update, its
-kernel (csrc/adam.cu) and the kernel's chunk plan.
+"""ops/adam: the in-place Adam, the plain foreach update, its kernel
+(csrc/adam.cu) and the kernel's chunk plan.
 
 On the CPU: the step against the per-leaf expression it replaced, bit for
 bit (the parameters and both moments after each of four steps, in float32
 and float64: the parameters' precisions, a bfloat16 HMR keeps float32
-weights and casts them per call); the in-place step against the
-functional step, and the autograd versions it raises; the chunk plan over
-HMR 2.0's and ResNet-50's leaves and edge sizes; the wrapper's refusals.
-Marked cuda (skipped without a card): the kernel against the plain foreach
-update on the card, bytes equal, at both models' leaves at full size, on
-empty, odd and unaligned leaves, on gradients that a CUDA graph rewrites
-in place, with its launch count. Eager division by a
+weights and casts them per call), written into the given parameters' and
+its own moments' tensors, and the autograd versions it raises; the chunk
+plan over HMR 2.0's and ResNet-50's leaves and edge sizes; the wrapper's
+refusals. Marked cuda (skipped without a card): the kernel against the
+plain foreach update on the card, bytes equal, at both models' leaves at
+full size, on empty, odd and unaligned leaves, on gradients that a CUDA
+graph rewrites in place, with its launch count. Eager division by a
 Python number rounds differently on the two devices (the card multiplies
 by the reciprocal), so both are held. This file imports no JAX:
 ``python -m pytest --noconftest tests/test_torch_port_adam.py`` on a card.
@@ -22,8 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.ops import adam as OA
+from tuch_tpu_torch.ops.adam import Adam
 
 SHAPES = {'w': (64, 3, 7, 7), 'b': (64,), 'fc': (517, 129), 's': (3,),
           'empty': (0, 5)}
@@ -96,7 +96,9 @@ def _cuda():
     'cpu', pytest.param('cuda', marks=pytest.mark.cuda)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_foreach_step_is_the_per_leaf_step_bit_for_bit(device, dtype):
-    """The per-leaf expression; on the card the step runs the kernel."""
+    """The per-leaf expression, written in place: into the given
+    parameters' tensors and the optimizer's own moments, the same tensors
+    from step to step. On the card the step runs the kernel."""
     if device == 'cuda':
         _cuda()
     gen = torch.Generator().manual_seed(3)
@@ -104,88 +106,32 @@ def test_foreach_step_is_the_per_leaf_step_bit_for_bit(device, dtype):
     opt = Adam(params, LR)
     ref = dict(count=0, mu={k: torch.zeros_like(v) for k, v in params.items()},
                nu={k: torch.zeros_like(v) for k, v in params.items()})
-    got, want = params, dict(params)
+    want = {k: v.clone() for k, v in params.items()}
+    held, mu, nu = dict(params), dict(opt.mu), dict(opt.nu)
     for _ in range(4):
         grads = _tree(SHAPES, gen, 1e-2, device, dtype)
-        got = opt.step(got, grads)
+        out = opt.step(params, grads)
         want = per_leaf_step(ref, want, grads, LR)
         for k in SHAPES:
-            _same(got[k], want[k])
+            assert out[k] is held[k] and params[k] is held[k]
+            assert opt.mu[k] is mu[k] and opt.nu[k] is nu[k]
+            _same(params[k], want[k])
             _same(opt.mu[k], ref['mu'][k])
             _same(opt.nu[k], ref['nu'][k])
-
-
-def test_step_leaves_the_given_tensors_unchanged():
-    """The step is functional: the parameters, gradients and the moments
-    of the step before are not written (callers keep them, as
-    tests/_torch_train_parity.snapshot does)."""
-    _hold_functional('cpu')
-
-
-@pytest.mark.cuda
-def test_step_leaves_the_given_tensors_unchanged_on_the_card():
-    """The same on the card, where the step copies p, m and v and runs the
-    in-place kernel on the copies."""
-    _hold_functional(_cuda())
-
-
-def _hold_functional(device):
-    gen = torch.Generator().manual_seed(5)
-    params = {k: torch.randn(s, generator=gen).to(device)
-              for k, s in SHAPES.items()}
-    grads = {k: torch.randn(s, generator=gen).to(device)
-             for k, s in SHAPES.items()}
-    opt = Adam(params, LR)
-    opt.step(params, grads)
-    before = [{k: v.clone() for k, v in d.items()}
-              for d in (params, grads, opt.mu, opt.nu)]
-    held = (params, grads, opt.mu, opt.nu)
-    out = opt.step(params, grads)
-    for d, b in zip(held, before):
-        for k in SHAPES:
-            _same(d[k], b[k])
-    assert all(out[k] is not params[k] for k in SHAPES)
-
-
-def _hold_in_place(device, dtype, shapes, seed=7):
-    """Four steps of an in_place=True optimizer and of the functional one
-    from the same start: the same bits, the in-place one writing into the
-    given parameters' and its own moments' tensors."""
-    gen = torch.Generator().manual_seed(seed)
-    start = _tree(shapes, gen, 1.0, device, dtype)
-    fn, ip = Adam(start, LR), Adam(start, LR, in_place=True)
-    p_fn = start
-    p_ip = {k: v.clone() for k, v in start.items()}
-    held, mu, nu = dict(p_ip), dict(ip.mu), dict(ip.nu)
-    for _ in range(4):
-        grads = _tree(shapes, gen, 1e-2, device, dtype)
-        p_fn = fn.step(p_fn, grads)
-        out = ip.step(p_ip, grads)
-        for k in shapes:
-            assert out[k] is held[k] and p_ip[k] is held[k]
-            assert ip.mu[k] is mu[k] and ip.nu[k] is nu[k]
-            _same(p_ip[k], p_fn[k])
-            _same(ip.mu[k], fn.mu[k])
-            _same(ip.nu[k], fn.nu[k])
-
-
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_step_in_place_is_the_functional_step_on_the_cpu(dtype):
-    _hold_in_place('cpu', dtype, SHAPES)
 
 
 @pytest.mark.parametrize('device', [
     'cpu', pytest.param('cuda', marks=pytest.mark.cuda)])
 def test_step_in_place_raises_the_written_tensors_versions(device):
-    """The in-place step writes the parameters as an in-place operation
-    does: a graph that saved them refuses its backward afterwards, rather
-    than reading the new weights."""
+    """The step writes the parameters as an in-place operation does: a
+    graph that saved them refuses its backward afterwards, rather than
+    reading the new weights."""
     if device == 'cuda':
         _cuda()
     gen = torch.Generator().manual_seed(9)
     params = {k: v.requires_grad_(True) for k, v in
               _tree(SHAPES, gen, 1.0, device, torch.float32).items()}
-    opt = Adam(params, LR, in_place=True)
+    opt = Adam(params, LR)
     before = [t._version for d in (params, opt.mu, opt.nu)
               for t in d.values()]
     loss = (params['fc'] * params['fc']).sum()   # saves fc
@@ -308,7 +254,7 @@ def test_adam_on_the_cpu_launches_nothing():
     before = (OA.adam_cuda.launches, OA.adam_cuda.floats)
     gen = torch.Generator().manual_seed(1)
     params = _tree(SHAPES, gen, 1.0, 'cpu', torch.float32)
-    opt = Adam(params, LR, in_place=True)
+    opt = Adam(params, LR)
     opt.step(params, _tree(SHAPES, gen, 1e-2, 'cpu', torch.float32))
     assert (OA.adam_cuda.launches, OA.adam_cuda.floats) == before
 
@@ -430,7 +376,7 @@ def test_kernel_reads_gradients_a_cuda_graph_rewrites():
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         g = [t * 1e-2 for t in x]
-    opt = Adam(dict(enumerate(p)), LR, in_place=True)
+    opt = Adam(dict(enumerate(p)), LR)
     want = ([t.clone() for t in p], [t.clone() for t in m],
             [t.clone() for t in v])
     for step in range(1, 4):
@@ -450,13 +396,6 @@ def test_kernel_reads_gradients_a_cuda_graph_rewrites():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
-def test_step_in_place_is_the_functional_step_on_the_card(dtype):
-    _hold_in_place(_cuda(), dtype, SHAPES)
-    _hold_in_place(_cuda(), dtype, model_shapes('resnet50'))
-
-
-@pytest.mark.cuda
 def test_kernel_refuses_a_bfloat16_leaf_on_the_card():
     dev = _cuda()
     params = {'w': torch.zeros(8, device=dev),
@@ -466,6 +405,6 @@ def test_kernel_refuses_a_bfloat16_leaf_on_the_card():
     with pytest.raises(ValueError, match='contiguous torch.float32'):
         opt.step(params, {k: torch.ones_like(t) for k, t in params.items()})
     with pytest.raises(ValueError, match='float32 or float64'):
-        Adam({'h': params['h']}, LR, in_place=True).step(
+        Adam({'h': params['h']}, LR).step(
             {'h': params['h']}, {'h': torch.ones_like(params['h'])})
     assert OA.adam_cuda.launches == before

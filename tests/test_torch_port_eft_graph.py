@@ -33,10 +33,10 @@ from torch.profiler import ProfilerActivity, profile
 from tuch_tpu_torch import constants
 from tuch_tpu_torch import runtime as rt
 from tuch_tpu_torch.fitting import eft as PEF
-from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.losses.eft import EFTWeights, eft_loss
 from tuch_tpu_torch.models import hmr as H
 from tuch_tpu_torch.models.smpl import smpl_forward
+from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
 
@@ -89,10 +89,7 @@ def eager_fit(r, start, img, kp, contact, masks, img_res):
                             img_res=img_res)
         grads = torch.autograd.grad(total, params, allow_unused=True,
                                     materialize_grads=True)
-        with torch.no_grad():
-            new = opt.step(dict(zip(names, params)), dict(zip(names, grads)))
-            for k, p in zip(names, params):
-                p.copy_(new[k])
+        opt.step(dict(zip(names, params)), dict(zip(names, grads)))
     pose = torch.nan_to_num(rotmat_to_aa(rotmat.detach())).reshape(1, 72)
     return dict(pose=pose, betas=betas.detach(), steps=STEPS,
                 loss=float(total.detach()))

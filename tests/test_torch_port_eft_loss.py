@@ -7,7 +7,7 @@ to the vertices, joints, betas and camera translation at the gradient bar
 (rtol 1e-3 plus 1e-5 of each tensor's largest entry), both for the
 reference's winding over every vertex and for K candidate vertices. A
 batch whose labels reach a region pair with every vertex pair banned gives
-inf, and with a label of 0 NaN, in both packages (ROADMAP fault 3.3, kept
+inf, and with a label of 0 NaN, in both packages (ROADMAP fault 3, kept
 quirk for quirk).
 """
 

@@ -13,7 +13,7 @@ import optax
 import pytest
 import torch
 
-from tuch_tpu_torch.fitting.smplify_dc import Adam
+from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.train.module import clip_by_global_norm
 
 SHAPES = {'a': (64, 3, 7, 7), 'b': (64,), 'c': (1024, 2061), 'd': (3,)}
@@ -50,7 +50,7 @@ def test_clip_then_adam_matches_optax(scale):
         pg = clip_by_global_norm([torch.from_numpy(g[k]) for k in names], c)
         for k, t in zip(names, pg):
             _close(t, clipped[k])
-        pp = opt.step(pp, dict(zip(names, pg)))
+        opt.step(pp, dict(zip(names, pg)))
         for k in names:
             _close(pp[k], jp[k])
     if scale < 1:

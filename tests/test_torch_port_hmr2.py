@@ -1,5 +1,5 @@
-"""HMR 2.0 (models/hmr2.py) against its plain reference (models/hmr2_ref.py)
-at toy size on the CPU, and its wiring.
+"""HMR 2.0 (models/hmr2.py) against its plain reference (the benchmark's
+portbench/reference/hmr2_ref.py) at toy size on the CPU, and its wiring.
 
 HMR 2.0 has no JAX counterpart: the plain float32 reference, which imports
 nothing of the port, is what holds it. On the CPU: the model against the
@@ -16,7 +16,6 @@ test_torch_port_kernels.py.
 """
 
 import ast
-import os
 
 import numpy as np
 import pytest
@@ -24,14 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from portbench.reference import hmr2_ref as R
 from tuch_tpu_torch import runtime as rt
 from tuch_tpu_torch.models import hmr as H
 from tuch_tpu_torch.models import hmr2 as H2
-from tuch_tpu_torch.models import hmr2_ref as R
 from tuch_tpu_torch.models import vit as V
 from tuch_tpu_torch.ops import attention as A
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = 'hmr2_toy'
 
 
@@ -238,11 +236,8 @@ def test_launch_counter_counts_replays():
 
 
 def test_reference_is_one_file_importing_only_torch_and_numpy():
-    port = os.path.join(REPO, 'tuch_tpu_torch', 'models', 'hmr2_ref.py')
-    bench = os.path.join(REPO, 'portbench', 'reference', 'hmr2_ref.py')
-    with open(port, 'rb') as f, open(bench, 'rb') as g:
+    with open(R.__file__, 'rb') as f:
         text = f.read()
-        assert text == g.read()
     tops = set()
     for node in ast.walk(ast.parse(text)):
         if isinstance(node, ast.Import):

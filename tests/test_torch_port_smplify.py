@@ -36,6 +36,7 @@ from tuch_tpu_torch.losses.prior import gmm_prior_nll
 from tuch_tpu_torch.models.convert import (contact_assets_from_numpy,
                                            prior_from_numpy)
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
+from tuch_tpu_torch.ops.adam import Adam
 
 B = 2
 EUCL = 0.02
@@ -292,12 +293,12 @@ def test_adam_matches_optax():
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     state = opt.init(jp)
     pp = {k: _t(v) for k, v in params.items()}
-    adam = PF.Adam(pp, 1e-2)
+    adam = Adam(pp, 1e-2)
     for g in grads:
         upd, state = opt.update({k: jnp.asarray(v) for k, v in g.items()},
                                 state)
         jp = optax.apply_updates(jp, upd)
-        pp = adam.step(pp, {k: _t(v) for k, v in g.items()})
+        adam.step(pp, {k: _t(v) for k, v in g.items()})
     for k in params:
         np.testing.assert_allclose(pp[k].numpy(), np.asarray(jp[k]),
                                    rtol=1e-6, atol=1e-7)
@@ -355,6 +356,40 @@ def test_smplify_dc_matches_jax(problem, case):
                               _t(p['kp2d']), _t(has_kp))
     np.testing.assert_allclose(pl_.numpy(), np.asarray(jl), rtol=1e-3,
                                atol=1e-3)
+
+
+@pytest.mark.parametrize('use_contact', [True, False],
+                         ids=['contact', 'no_contact'])
+def test_smplify_dc_leaves_its_start_unchanged(problem, use_contact):
+    """Adam steps in place on the fit's own clones: the caller's start (a
+    non-contiguous init_pose view, init_betas, init_cam_t) is read and
+    never written, and the fit from it is the fit from contiguous copies
+    bit for bit."""
+    p = problem
+    config = PF.SMPLifyConfig(num_iters=2, euclthres=EUCL,
+                              contact_loss_weight=2000.0,
+                              use_contact=use_contact)
+    wide = _t(np.concatenate([p['fold_pose'] * 0.5,
+                              np.ones((B, 5), np.float32)], axis=1))
+    init_pose = wide[:, :72]
+    assert not init_pose.is_contiguous()
+    init_betas, init_cam_t = _t(p['betas'] + 0.1), _t(p['t_gt'] + 0.5)
+    rest = (_t(p['cc']), _t(p['kp2d']), _t(p['gt_contact']),
+            _t(np.zeros(B, bool)), _t(np.array([True, False])),
+            _t(np.array([False, True])))
+    start = (wide, init_betas, init_cam_t)
+    before = [t.clone() for t in start]
+    got = PF.smplify_dc(p['psmpl'], p['pprior'], p['pca'], init_pose,
+                        init_betas, init_cam_t, *rest, config=config)
+    for t, b in zip(start, before):
+        assert torch.equal(t, b)
+    want = PF.smplify_dc(p['psmpl'], p['pprior'], p['pca'],
+                         before[0][:, :72].contiguous(), before[1].clone(),
+                         before[2].clone(), *rest, config=config)
+    for name in ('vertices', 'pose', 'betas', 'camera_translation',
+                 'reprojection_loss'):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert not torch.equal(got.camera_translation, init_cam_t)
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,21 @@ def test_vertex_fit_matches_jax(bodies, fit_translation, steps):
                                rtol=loss_rtol)
 
 
+def test_vertex_fit_leaves_its_start_unchanged(bodies):
+    """Adam steps in place on the fit's own clones: the caller's
+    init_pose and init_betas (views of numpy arrays) are read and never
+    written, and the fitted betas moved away from them."""
+    _, pm, target, init = bodies
+    betas = np.full((4, 10), 0.1, np.float32)
+    init_pose, init_betas = torch.as_tensor(init), torch.as_tensor(betas)
+    before = init_pose.clone(), init_betas.clone()
+    got = pfit(pm, torch.as_tensor(target), init_pose=init_pose,
+               init_betas=init_betas, num_steps=3, fit_translation=True)
+    assert torch.equal(init_pose, before[0])
+    assert torch.equal(init_betas, before[1])
+    assert not torch.equal(got.betas, init_betas)
+
+
 def test_vertex_fit_mse_and_free_orient_match_jax(bodies):
     """The opt-in deviations, 20 steps without translation."""
     jm, pm, target, init = bodies

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The card's run-to-run noise of cli/train, and a resume's distance from
-the straight run (ROADMAP fault 3.4), on one CUDA card.
+the straight run (ROADMAP fault 4), on one CUDA card.
 
 Run A as chip_smoke.py phase 13 runs it (ResNet-50, B=64, 224 px, 4
 steps, validation and a checkpoint at steps 2 and 4), then REPEATS times

@@ -68,11 +68,11 @@ from torch.autograd import profiler as autograd_profiler
 from torch.profiler import record_function
 
 from tuch_tpu_torch import constants
-from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.losses.eft import EFTWeights, eft_loss
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.hmr import HMR, HMRGraphs, draw_dropout_masks
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
+from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
 
@@ -181,8 +181,7 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
         hmr.train()
         graphed = graphs.bind(img)
         names, params = zip(*hmr.named_parameters())
-        opt = Adam({k: p.detach() for k, p in zip(names, params)}, lr,
-                   in_place=True)
+        opt = Adam({k: p.detach() for k, p in zip(names, params)}, lr)
         dev = img.device
         rotmat = torch.eye(3, dtype=img.dtype, device=dev).expand(
             1, 24, 3, 3)

@@ -12,9 +12,9 @@ contact compaction couples the batch: it takes the first `capacity`
 active samples of the global batch, and each rank runs those in its
 slice. With cp > 1 the contact quadratics split over the cp ranks.
 
-Adam is written out as optax's `adam` computes it:
-m = (1 - b1) g + b1 m, v = (1 - b2) g² + b2 v, and the step
--lr m̂ / (√v̂ + eps) with the bias-corrected m̂, v̂.
+Each stage steps optax's Adam (ops/adam.Adam) in place on contiguous
+clones of its start, made when the stage starts: the caller's tensors and
+those a loss reads as constants stay as they are.
 """
 
 from typing import Callable, Dict, NamedTuple, Optional
@@ -27,7 +27,7 @@ from tuch_tpu_torch.losses import smplify as L
 from tuch_tpu_torch.losses.prior import GMMPrior
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
-from tuch_tpu_torch.ops.adam import adam_cuda, adam_plain
+from tuch_tpu_torch.ops.adam import Adam, contiguous_clones
 from tuch_tpu_torch.parallel import mesh as PM
 
 # Joints ignored during fitting (reference smplifydc.py:46-47).
@@ -68,65 +68,6 @@ class SMPLifyResult(NamedTuple):
     contact_truncated_frac: Optional[torch.Tensor] = None
 
 
-class Adam:
-    """optax.adam(lr, b1, b2, eps) on a dict of tensors.
-
-    step is functional: it returns new parameters and replaces the moments
-    by new tensors. Made with in_place=True, it writes the new parameters
-    into the given parameters' tensors and the new moments into the
-    moments' tensors instead, and raises their autograd versions. Both
-    take every leaf at once: on the card through one pass of the kernel
-    (ops/adam.adam_cuda; the functional step first copies p, m and v into
-    new tensors), on the CPU through torch._foreach_* (ops/adam.adam_plain),
-    with the per-leaf expression's roundings, bit for bit, for float32 and
-    float64 leaves (the parameters are float32: a bfloat16 HMR casts per
-    call)."""
-
-    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 in_place: bool = False):
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.in_place = in_place
-        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
-        self.count = 0
-
-    @torch.no_grad()
-    def step(self, params, grads):
-        """The new parameters, a dict: params' own tensors where the
-        optimizer was made with in_place=True, new ones otherwise."""
-        self.count += 1
-        # the bias corrections in float32, as optax computes them
-        n = np.float32(self.count)
-        hyper = dict(lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
-                     c1=1 - np.float32(self.b1) ** n,
-                     c2=1 - np.float32(self.b2) ** n)
-        keys = list(params)
-        p, g, m, v = [[d[k] for k in keys] for d in (params, grads, self.mu,
-                                                      self.nu)]
-        if not keys:
-            new = ([], [], [])
-        elif p[0].is_cuda:
-            if not self.in_place:
-                fresh = []
-                for ts in (p, m, v):
-                    out = [torch.empty_like(
-                        t, memory_format=torch.contiguous_format)
-                        for t in ts]
-                    torch._foreach_copy_(out, ts)
-                    fresh.append(out)
-                p, m, v = fresh
-            new = adam_cuda(p, g, m, v, **hyper)
-        else:
-            new = adam_plain(p, g, m, v, **hyper)
-            if self.in_place:
-                for old, t in zip((p, m, v), new):
-                    torch._foreach_copy_(old, t)
-                new = (p, m, v)
-        self.mu, self.nu = dict(zip(keys, new[1])), dict(zip(keys, new[2]))
-        return dict(zip(keys, new[0]))
-
-
 def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor]):
     """(loss, grads) of loss_fn(params) with respect to every entry."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
@@ -136,15 +77,16 @@ def value_and_grad(loss_fn: Callable, params: Dict[str, torch.Tensor]):
 
 
 def _run_adam(loss_fn, params, num_iters, lr, collect=None):
-    """num_iters Adam steps; collect(params) runs on the params BEFORE each
-    step (frame 0 is the init), as the reference's trajectory does."""
+    """num_iters Adam steps in place on params, which the fit owns;
+    collect(params) runs on the params BEFORE each step (frame 0 is the
+    init), as the reference's trajectory does, and returns new tensors."""
     opt = Adam(params, lr)
     traj = []
     for _ in range(num_iters):
         if collect is not None:
             traj.append(collect(params))
         _, grads = value_and_grad(loss_fn, params)
-        params = opt.step(params, grads)
+        opt.step(params, grads)
     return params, traj
 
 
@@ -220,12 +162,13 @@ def smplify_dc(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
             joints_2d, joints_conf, focal_length=config.focal_length,
             shape_prior_weight=spw)
 
+    # stepped on clones: init_cam_t stays the camera prior's target
     if config.use_contact:
         cam_params = {'betas': betas0, 'cam_t': init_cam_t}
     else:
         cam_params = {'global_orient': global_orient0, 'cam_t': init_cam_t}
-    cam_params, _ = _run_adam(camera_loss, cam_params, config.num_iters,
-                              config.step_size)
+    cam_params, _ = _run_adam(camera_loss, contiguous_clones(cam_params),
+                              config.num_iters, config.step_size)
     cam_t = cam_params['cam_t']
     betas1 = cam_params.get('betas', betas0)
     global_orient1 = cam_params.get('global_orient', global_orient0)
@@ -260,7 +203,8 @@ def smplify_dc(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
                               ignore_idxs, has_discrete_contact, config,
                               compact_idx)
         Kc = max(0, int(config.contact_candidate_k))
-        p = {'body_pose': body_pose0, 'global_orient': global_orient1}
+        p = contiguous_clones({'body_pose': body_pose0,
+                               'global_orient': global_orient1})
         opt = Adam(p, config.step_size)
         # Candidate mode seeds with one EXACT pass (distance-ranked
         # candidates cannot see interiors of geodesically local folds);
@@ -276,7 +220,7 @@ def smplify_dc(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
             elif it % K == 0:
                 neighbors = stage.neighbors(p)
             _, grads = value_and_grad(lambda q: stage.loss(q, neighbors), p)
-            p = opt.step(p, grads)
+            opt.step(p, grads)
         body_params = p
         betas2 = betas1
     else:
@@ -288,8 +232,9 @@ def smplify_dc(smpl: SMPL, prior: GMMPrior, assets: ContactAssets,
                 camera_center, joints_2d, conf2, prior,
                 focal_length=config.focal_length)
 
-        body_params = {'body_pose': body_pose0,
-                       'global_orient': global_orient1, 'betas': betas1}
+        body_params = contiguous_clones({'body_pose': body_pose0,
+                                         'global_orient': global_orient1,
+                                         'betas': betas1})
         body_params, traj = _run_adam(body_loss, body_params,
                                       config.num_iters, config.step_size,
                                       collect=collect)

@@ -10,17 +10,18 @@ semantics by default: the loss is the MEAN PER-VERTEX L2 NORM
 global orientation pose[:3] is held fixed, and the translation is a real
 parameter started at the centroid difference and frozen (its updates zero)
 unless fit_translation. Adam is optax's, with its fp32 bias corrections
-(fitting/smplify_dc.Adam). Deviations (MSE loss, free global orient) are
-opt-in arguments.
+(ops/adam.Adam, stepped in place on clones of the start). Deviations (MSE
+loss, free global orient) are opt-in arguments.
 """
 
 from typing import NamedTuple, Optional
 
 import torch
 
-from tuch_tpu_torch.fitting.smplify_dc import Adam, value_and_grad
+from tuch_tpu_torch.fitting.smplify_dc import value_and_grad
 from tuch_tpu_torch.losses.smplify import zero_safe_norm
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward_pose72
+from tuch_tpu_torch.ops.adam import Adam, contiguous_clones
 
 
 class VertexFitResult(NamedTuple):
@@ -91,13 +92,15 @@ def fit_smpl_to_vertices(model: SMPL,
             v0 = vertices(pose0, betas0, transl0)
         transl0 = target_vertices.mean(dim=1) - v0.mean(dim=1)
 
-    params = {'pose': pose0, 'betas': betas0, 'transl': transl0}
+    # clones: pose0 (full_pose's orientation) and the caller's init stay
+    params = contiguous_clones({'pose': pose0, 'betas': betas0,
+                                'transl': transl0})
     opt = Adam(params, lr)
     for _ in range(num_steps):
         _, grads = value_and_grad(lambda p: per_sample(p).mean(), params)
         if not fit_translation:   # optax.masked(set_to_zero()) before adam
             grads['transl'] = torch.zeros_like(grads['transl'])
-        params = opt.step(params, grads)
+        opt.step(params, grads)
     with torch.no_grad():
         final = per_sample(params)
     return VertexFitResult(pose=full_pose(params['pose']).detach(),

@@ -14,7 +14,7 @@ step's 'eft_step.forward.loss' (fitting/eft.py):
 'eft_step.forward.loss.region_pairs' around region_pair_min_dists.
 
 A region pair whose vertex pairs are all banned gives inf, and inf times a
-label of 0 is NaN: the JAX package's quirk, kept (ROADMAP fault 3.3).
+label of 0 is NaN: the JAX package's quirk, kept (ROADMAP fault 3).
 """
 
 from typing import NamedTuple

@@ -1,19 +1,22 @@
-"""Adam's update of many tensors at once: the plain version and the kernel.
+"""Adam's update of many tensors at once: the optimizer, its plain
+version and its kernel.
 
-fitting/smplify_dc.Adam steps through here. adam_plain is the update in
-torch._foreach_* operations (15 passes over the tensors), with the roundings
-of optax's expression written leaf by leaf:
+Adam is optax's adam(lr, b1, b2, eps) stepped in place, with optax's
+float32 bias corrections c1 = 1 - b1^n and c2 = 1 - b2^n at step n.
+adam_plain is the update in torch._foreach_* operations (15 passes over
+the tensors), with the roundings of optax's expression written leaf by
+leaf:
 
     m' = (1 - b1) g + b1 m,  v' = (1 - b2) (g g) + b2 v,
-    p' = p + (-lr) ((m' / c1) / (sqrt(v' / c2) + eps)),
+    p' = p + (-lr) ((m' / c1) / (sqrt(v' / c2) + eps)).
 
-c1 and c2 the float32 bias corrections. adam_cuda launches csrc/adam.cu
-(see its header for the design), which reads p, g, m and v once and writes
-p', m' and v' once, in place, and equals adam_plain on the card bit for
-bit. It takes every tensor of a step in len(chunk_plan(...)) launches:
-each launch a run of up to MAX_LEAVES tensors, cut into CHUNK-element
-chunks, one block each. It counts .launches (the launches that ran) and
-.floats (the elements updated).
+adam_cuda launches csrc/adam.cu (see its header for the design), which
+reads p, g, m and v once and writes p', m' and v' once, in place, and
+equals adam_plain on the card bit for bit. It takes every tensor of a
+step in len(chunk_plan(...)) launches: each launch a run of up to
+MAX_LEAVES tensors, cut into CHUNK-element chunks, one block each. It
+counts .launches (the launches that ran) and .floats (the elements
+updated).
 """
 
 import array
@@ -21,7 +24,7 @@ import ctypes
 import functools
 from itertools import chain
 from operator import attrgetter
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -201,3 +204,51 @@ def adam_cuda(params, grads, mu, nu, *, lr, b1, b2, eps, c1, c2):
 
 
 adam_cuda.launches = adam_cuda.floats = 0
+
+
+def contiguous_clones(params: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """A start for Adam to step: each tensor cloned, contiguous (kernel 8
+    takes no other), so that the steps write neither the caller's tensors
+    nor any that a loss reads as a constant."""
+    return {k: v.clone(memory_format=torch.contiguous_format)
+            for k, v in params.items()}
+
+
+class Adam:
+    """optax.adam(lr, b1, b2, eps) on a dict of tensors, in place.
+
+    step writes the new parameters into the given parameters' tensors and
+    the new moments into the moments' tensors, and raises their autograd
+    versions: the caller owns the parameters' storage (contiguous_clones
+    gives a start of its own). Every leaf at once: on the card through one
+    pass of kernel 8 (adam_cuda), on the CPU through adam_plain and a copy
+    back, with the per-leaf expression's roundings, bit for bit, for
+    float32 and float64 leaves (the parameters are float32: a bfloat16 HMR
+    casts per call)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, params, grads):
+        """One step written into params' tensors; returns params."""
+        self.count += 1
+        # the bias corrections in float32, as optax computes them
+        n = np.float32(self.count)
+        hyper = dict(lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
+                     c1=1 - np.float32(self.b1) ** n,
+                     c2=1 - np.float32(self.b2) ** n)
+        keys = list(params)
+        p, g, m, v = [[d[k] for k in keys] for d in (params, grads, self.mu,
+                                                      self.nu)]
+        if keys and p[0].is_cuda:
+            adam_cuda(p, g, m, v, **hyper)
+        elif keys:
+            for old, new in zip((p, m, v), adam_plain(p, g, m, v, **hyper)):
+                torch._foreach_copy_(old, new)
+        return params

@@ -43,13 +43,13 @@ from torch.profiler import record_function
 from tuch_tpu_torch import config as cfg
 from tuch_tpu_torch import constants
 from tuch_tpu_torch.fitting import smplify_dc as smplify_mod
-from tuch_tpu_torch.fitting.smplify_dc import Adam
 from tuch_tpu_torch.losses import regressor as RL
 from tuch_tpu_torch.losses.prior import GMMPrior
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.hmr import HMR, draw_dropout_masks, sync_batchnorm
 from tuch_tpu_torch.models.smpl import SMPL, smpl_forward, smpl_forward_pose72
 from tuch_tpu_torch.ops import contact as contact_ops
+from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.parallel import mesh as PM
 from tuch_tpu_torch.train import fits_store
 from tuch_tpu_torch.utils.projection import (estimate_translation,
@@ -315,11 +315,9 @@ def make_train_step(assets: TuchAssets, options: cfg.TrainConfig,
             grads = PM.all_reduce_grads(grads, mesh)
             if options.grad_clip > 0:
                 grads = clip_by_global_norm(grads, options.grad_clip)
-        with record_function('train_step.adam'), torch.no_grad():
-            new = state.opt.step(dict(zip(names, params)),
-                                 dict(zip(names, grads)))
-            for k, p in zip(names, params):
-                p.copy_(new[k])
+        with record_function('train_step.adam'):
+            # in place: one pass of the kernel on the card
+            state.opt.step(dict(zip(names, params)), dict(zip(names, grads)))
 
         metrics = {'loss': PM.dp_sum(total.detach(), mesh),
                    **{k: v.detach() for k, v in loss_dict.items()},
