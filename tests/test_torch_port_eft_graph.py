@@ -1,25 +1,29 @@
-"""HMR's CUDA graphs in the EFT fit (models/hmr.HMRGraphs, fitting/eft.py).
+"""HMR's and SMPL's CUDA graphs in the EFT fit (models/hmr.HMRGraphs,
+models/smpl.SMPLGraphs, fitting/eft.py).
 
 On the CPU: the engagement rule (graph_engages: a CUDA device, train mode,
 no BatchNorm2d with a sync_group) and HMRGraphs.bind's None off the card;
 a 3-step make_eft_fit_fn fit on the 170-vertex body at 64 px (ResNet-50)
-opens no 'eft_step.forward.hmr.graph' span, and its pose, betas, steps and
-loss are bit for bit those of the eager step written out here (the fit's
-loop as it was before the graphs).
+opens neither 'eft_step.forward.hmr.graph' nor 'eft_step.forward.smpl.graph'
+spans, and its pose, betas, steps and loss, traced, untraced and fitted
+again by the same function, are bit for bit those of the eager step
+written out here (the fit's loop as it was before the graphs).
 
 On the card (marked cuda; skipped without one): ResNet-50 at 224 px, two
-images of 3 steps each, the graph path against the same fit with
-graph_engages off, float32 with TF32 off and deterministic algorithms: each
-step's loss, parameter gradients and updated parameters, the pose and
-betas, and the running statistics after each fit, bit for bit; image 1's
-result unchanged after image 2 is fitted; one 'eft_step.forward.hmr.graph'
-span a step; no warning of a gradient accumulator on another stream (the
-capture's side streams); EFTFitter.fit() leaves the start's parameters and
-statistics; and one ViT-S/16 fit, graph against eager. HMR 2.0
-(models/hmr2) at toy size and at its published widths (ViT-H/16 at 256
-px), two images of 3 steps on its drop-path masks, graph against eager bit
-for bit; its kernel-1 launches counted at each replay (ops/attention
-.mha_cuda.launches) equal the trace's kernel-1 operations.
+images of 3 steps each, the graph path (HMR's and SMPL's graphs) against
+the same fit with graph_engages off and SMPLGraphs.bind giving None,
+float32 with TF32 off and deterministic algorithms: each step's loss,
+parameter gradients and updated parameters, the pose and betas, and the
+running statistics after each fit, bit for bit; image 1's result
+unchanged after image 2 is fitted; one 'eft_step.forward.hmr.graph' and
+one 'eft_step.forward.smpl.graph' span a step; no warning of a gradient
+accumulator on another stream (the capture's side streams);
+EFTFitter.fit() leaves the start's parameters and statistics; and one
+ViT-S/16 fit, graph against eager. HMR 2.0 (models/hmr2) at toy size and
+at its published widths (ViT-H/16 at 256 px), two images of 3 steps on
+its drop-path masks, graph against eager bit for bit; its kernel-1
+launches counted at each replay (ops/attention .mha_cuda.launches) equal
+the trace's kernel-1 operations.
 """
 
 import types
@@ -35,6 +39,7 @@ from tuch_tpu_torch import runtime as rt
 from tuch_tpu_torch.fitting import eft as PEF
 from tuch_tpu_torch.losses.eft import EFTWeights, eft_loss
 from tuch_tpu_torch.models import hmr as H
+from tuch_tpu_torch.models import smpl as S
 from tuch_tpu_torch.models.smpl import smpl_forward
 from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
@@ -43,6 +48,7 @@ from tuch_tpu_torch.utils.rotations import rotmat_to_aa
 STEPS = 3
 LR = 1e-5
 GRAPH_SPAN = 'eft_step.forward.hmr.graph'
+SMPL_SPAN = 'eft_step.forward.smpl.graph'
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -95,9 +101,9 @@ def eager_fit(r, start, img, kp, contact, masks, img_res):
                 loss=float(total.detach()))
 
 
-def graph_spans(prof):
+def graph_spans(prof, span=GRAPH_SPAN):
     return sum(1 for e in prof.profiler.kineto_results.events()
-               if e.name() == GRAPH_SPAN)
+               if e.name() == span)
 
 
 # ---------------------------------------------------------------------------
@@ -162,18 +168,21 @@ def cpu_fits():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = fit(start, *ins, dropout=lambda i: masks[i])
     plain = fit(start, *ins, dropout=lambda i: masks[i])
+    refit = fit(start, *ins, dropout=lambda i: masks[i])
     want = eager_fit(r, start, *ins, masks, 64)
-    return dict(plain=plain, traced=traced, want=want, prof=prof)
+    return dict(plain=plain, traced=traced, refit=refit, want=want,
+                prof=prof)
 
 
 def test_cpu_fit_opens_no_graph_span(cpu_fits):
     names = [e.name() for e in cpu_fits['prof'].profiler.kineto_results
              .events()]
-    assert names.count('eft_step.forward.hmr') == STEPS
-    assert graph_spans(cpu_fits['prof']) == 0
+    for span in (GRAPH_SPAN, SMPL_SPAN):
+        assert names.count(span[:-len('.graph')]) == STEPS
+        assert graph_spans(cpu_fits['prof'], span) == 0
 
 
-@pytest.mark.parametrize('which', ['plain', 'traced'])
+@pytest.mark.parametrize('which', ['plain', 'traced', 'refit'])
 @pytest.mark.parametrize('field', ['pose', 'betas', 'steps', 'loss'])
 def test_cpu_fit_is_the_eager_step_bit_for_bit(cpu_fits, which, field):
     got, want = getattr(cpu_fits[which], field), cpu_fits['want'][field]
@@ -240,16 +249,18 @@ class Recorder:
 
 def card_fits(r, dev, img_res, images, graph, digest=False):
     """Fit `images` (seeds) one after another from r.hmr's start with the
-    graphs on or off: results, copies of each result as it left its fit,
-    the buffers after each fit, every step's record (Recorder's, digests
-    with digest), the graph spans and the warnings raised."""
+    graphs (HMR's and SMPL's) on or off: results, copies of each result as
+    it left its fit, the buffers after each fit, every step's record
+    (Recorder's, digests with digest), the HMR and SMPL graph spans and
+    the warnings raised."""
     start = {k: v.detach().clone() for k, v in r.hmr.state_dict().items()}
-    out = dict(results=[], copies=[], buffers=[], spans=0)
+    out = dict(results=[], copies=[], buffers=[], spans=0, smpl_spans=0)
     with pytest.MonkeyPatch.context() as mp, \
             warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter('always')
         if not graph:
             mp.setattr(H, 'graph_engages', lambda model, device: False)
+            mp.setattr(S.SMPLGraphs, 'bind', lambda self, b, r: None)
         rec = Recorder(mp, digest)
         fit = PEF.make_eft_fit_fn(r.hmr, r.smpl, r.contact, EFTWeights(),
                                   max_steps=STEPS, lr=LR, img_res=img_res)
@@ -261,6 +272,7 @@ def card_fits(r, dev, img_res, images, graph, digest=False):
                 res = fit(start, *ins, dropout=lambda i: masks[i])
             torch.cuda.synchronize()
             out['spans'] += graph_spans(prof)
+            out['smpl_spans'] += graph_spans(prof, SMPL_SPAN)
             out['results'].append(res)
             out['copies'].append((res.pose.clone(), res.betas.clone()))
             out['buffers'].append({k: b.clone()
@@ -333,8 +345,9 @@ def test_no_gradient_stream_mismatch_on_card(resnet_card):
 
 @pytest.mark.cuda
 def test_one_graph_span_a_step_on_card(resnet_card):
-    assert resnet_card['graph']['spans'] == 2 * STEPS
-    assert resnet_card['eager']['spans'] == 0
+    for spans in ('spans', 'smpl_spans'):
+        assert resnet_card['graph'][spans] == 2 * STEPS, spans
+        assert resnet_card['eager'][spans] == 0, spans
 
 
 class Images:
@@ -377,7 +390,8 @@ def test_vit_graph_fit_matches_eager_on_card(card):
                          dtype='float32')
     eager = card_fits(r, card, 224, (3,), graph=False)
     graph = card_fits(r, card, 224, (3,), graph=True)
-    assert graph['spans'] == STEPS and eager['spans'] == 0
+    assert graph['spans'] == graph['smpl_spans'] == STEPS
+    assert eager['spans'] == eager['smpl_spans'] == 0
     for a, b in zip(eager['steps'], graph['steps']):
         assert torch.equal(a['loss'], b['loss'])
         assert all_equal(a['grads'], b['grads'])
@@ -400,7 +414,8 @@ def test_hmr2_graph_fit_matches_eager_on_card(card, backbone):
     digest = backbone == 'hmr2_vith16'
     eager = card_fits(r, card, res, (1, 2), graph=False, digest=digest)
     graph = card_fits(r, card, res, (1, 2), graph=True, digest=digest)
-    assert graph['spans'] == 2 * STEPS and eager['spans'] == 0
+    assert graph['spans'] == graph['smpl_spans'] == 2 * STEPS
+    assert eager['spans'] == eager['smpl_spans'] == 0
     assert len(eager['steps']) == len(graph['steps']) == 2 * STEPS
     for a, b in zip(eager['steps'], graph['steps']):
         assert torch.equal(a['loss'], b['loss'])

@@ -21,9 +21,10 @@ again from the given ones.
 
 On a CUDA image HMR's forward and backward replay as two CUDA graphs
 (models/hmr.HMRGraphs, captured in the first fit of each image shape and
-precision; models/hmr.graph_engages says where), elsewhere they run
-eagerly; the numbers are the same. The returned pose and betas are
-copies, so a later fit does not change them.
+precision; models/hmr.graph_engages says where), and so do SMPL's
+(models/smpl.SMPLGraphs, captured in the first fit of each precision);
+elsewhere they run eagerly; the numbers are the same. The returned pose
+and betas are copies, so a later fit does not change them.
 
 Each part of a step runs under a torch.profiler record_function span:
 'eft_step.stop_check', 'eft_step.forward', 'eft_step.backward' and
@@ -34,7 +35,10 @@ Each part of a step runs under a torch.profiler record_function span:
     .hmr.graph                the replay of its CUDA graph, where
                               HMRGraphs engages (a CUDA image); the
                               eager forward opens none
-  eft_step.forward.smpl       models/smpl
+  eft_step.forward.smpl       models/smpl, which opens
+    .smpl.graph               the replay of its CUDA graph, where
+                              SMPLGraphs engages (a CUDA device); the
+                              eager forward opens none
   eft_step.forward.loss       the EFT loss (losses/eft), which opens
     .loss.neighbors           the contact search without gradient
     .loss.region_pairs        and the region-pair loop
@@ -71,7 +75,7 @@ from tuch_tpu_torch import constants
 from tuch_tpu_torch.losses.eft import EFTWeights, eft_loss
 from tuch_tpu_torch.losses.smplify import ContactAssets
 from tuch_tpu_torch.models.hmr import HMR, HMRGraphs, draw_dropout_masks
-from tuch_tpu_torch.models.smpl import SMPL, smpl_forward
+from tuch_tpu_torch.models.smpl import SMPL, SMPLGraphs, smpl_forward
 from tuch_tpu_torch.ops.adam import Adam
 from tuch_tpu_torch.utils.projection import weak_perspective_to_translation
 from tuch_tpu_torch.utils.rotations import rotmat_to_aa
@@ -148,10 +152,10 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
     draw_dropout_masks.
     """
 
-    graphs = HMRGraphs(hmr)
+    graphs, smpl_graphs = HMRGraphs(hmr), SMPLGraphs(smpl)
     draw_masks = getattr(hmr, 'draw_masks', None)
 
-    def loss_at(img, kp, contact, masks, spans, graphed):
+    def loss_at(img, kp, contact, masks, spans, graphed, smpl_graphed):
         with record_function('eft_step.forward.hmr'):
             if graphed is None:
                 out = hmr(img, dropout=masks)
@@ -161,8 +165,12 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
             rotmat, betas, cam = _boundary(spans, 'eft_step.backward.hmr',
                                            *out)
         with record_function('eft_step.forward.smpl'):
-            out = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
-                               pose2rot=False)
+            if smpl_graphed is None:
+                out = smpl_forward(smpl, betas, rotmat[:, 1:], rotmat[:, :1],
+                                   pose2rot=False)
+            else:
+                with record_function('eft_step.forward.smpl.graph'):
+                    out = smpl_graphed(betas, rotmat)
             joints, vertices = _boundary(spans, 'eft_step.backward.smpl',
                                          out.joints, out.vertices)
         cam_t = weak_perspective_to_translation(cam, constants.FOCAL_LENGTH,
@@ -186,6 +194,7 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
         rotmat = torch.eye(3, dtype=img.dtype, device=dev).expand(
             1, 24, 3, 3)
         betas = img.new_zeros(1, 10)
+        smpl_graphed = smpl_graphs.bind(betas, rotmat)
         step, last = 0, None
 
         def loss():
@@ -203,7 +212,7 @@ def make_eft_fit_fn(hmr: HMR, smpl: SMPL, assets: ContactAssets,
                                                             dev)
                          if dropout is None else dropout(step))
                 total, rotmat, betas = loss_at(img, kp, contact, masks,
-                                               spans, graphed)
+                                               spans, graphed, smpl_graphed)
             with record_function('eft_step.backward'):
                 try:
                     # on the graph path the gradients are the backward

@@ -135,6 +135,111 @@ def smpl_forward(model: SMPL, betas: torch.Tensor, body_pose: torch.Tensor,
                       joints_smpl=posed_joints)
 
 
+class _Replay(torch.autograd.Function):
+    """One forward replay of a _GraphedStep on (betas, rotmat), as an
+    autograd node whose backward is one backward replay. joints_smpl has
+    no gradient (no EFT term reads it)."""
+
+    @staticmethod
+    def forward(ctx, step, betas, rotmat):
+        ctx.step = step
+        step.betas.copy_(betas)
+        step.rotmat.copy_(rotmat)
+        step.fwd.replay()
+        outs = tuple(o.detach() for o in step.outs)
+        ctx.mark_non_differentiable(outs[2])
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_vertices, g_joints, _):
+        step = ctx.step
+        step.grad_outs[0].copy_(g_vertices)
+        step.grad_outs[1].copy_(g_joints)
+        step.bwd.replay()
+        return (None,) + tuple(g.detach() for g in step.grads)
+
+
+class _GraphedStep:
+    """smpl_forward(model, betas, rotmat[:, 1:], rotmat[:, :1],
+    pose2rot=False) and its backward as two CUDA graphs over static
+    buffers: betas (B, 10) and rotmat (B, 24, 3, 3), the outputs, the
+    gradients of vertices and joints, and those of betas and rotmat."""
+
+    WARMUP = 3
+
+    def __init__(self, model, betas, rotmat):
+        self.betas = betas.detach().clone().requires_grad_()
+        self.rotmat = rotmat.detach().clone().requires_grad_()
+        with torch.cuda.device(betas.device):
+            self._capture(model)
+
+    def _forward(self, model):
+        return smpl_forward(model, self.betas, self.rotmat[:, 1:],
+                            self.rotmat[:, :1], pose2rot=False)
+
+    def _capture(self, model):
+        inputs = (self.betas, self.rotmat)
+        # warm-up on a side stream, so that lazy set-up (cuBLAS handles and
+        # workspaces) happens before the capture
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                out = self._forward(model)
+                torch.autograd.grad(out[:2], inputs,
+                                    [torch.zeros_like(o) for o in out[:2]])
+        del out
+        torch.cuda.current_stream().wait_stream(side)
+        self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.fwd):
+            out = self._forward(model)
+        self.grad_outs = tuple(torch.zeros_like(o) for o in out[:2])
+        with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
+            self.grads = torch.autograd.grad(out[:2], inputs,
+                                             self.grad_outs)
+        self.outs = tuple(o.detach() for o in out)
+
+    def __call__(self, betas, rotmat) -> SMPLOutput:
+        with torch.cuda.device(self.betas.device):
+            return SMPLOutput(*_Replay.apply(self, betas, rotmat))
+
+
+class SMPLGraphs:
+    """SMPL's forward on rotation matrices and its backward as CUDA
+    graphs, one pair per batch size, dtype, device and TF32 setting of the
+    matmuls, captured on first use: the EFT fit's SMPL (fitting/eft.py).
+
+    bind(betas, rotmat) -> None where the inputs are not on a CUDA device:
+    the caller runs smpl_forward as ever. Else (capturing first if new) it
+    returns step(betas, rotmat) -> SMPLOutput, the output of
+    smpl_forward(model, betas, rotmat[:, 1:], rotmat[:, :1],
+    pose2rot=False) bit for bit: a copy of the inputs into their static
+    buffers and one replay. The backward of vertices and joints is one
+    replay too, and gives the gradients of betas and rotmat; joints_smpl
+    has none. Each forward must be followed by its backward before the
+    next forward.
+
+    The outputs and the inputs' gradients are static buffers that the next
+    replay overwrites: a caller keeps what it needs past that by copying
+    it. The graphs read model's buffers where they are.
+    """
+
+    def __init__(self, model: SMPL):
+        self.model = model
+        self._steps = {}
+
+    def bind(self, betas, rotmat):
+        if betas.device.type != 'cuda':
+            return None
+        key = (betas.shape[0], betas.dtype, betas.device,
+               torch.backends.cuda.matmul.allow_tf32)
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = _GraphedStep(self.model, betas,
+                                                   rotmat)
+        return step
+
 
 def smpl_forward_pose72(model: SMPL, betas: torch.Tensor,
                         pose: torch.Tensor) -> SMPLOutput:
